@@ -1,0 +1,120 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+One nvcc call compiles every ``csrc/*.cu`` into one shared library with a
+plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/libnevo_kernels-<hash>.so csrc/*.cu
+
+Each exported function returns a ``cudaError_t``. The library goes to the
+package's ``_build/`` directory (git ignores it), is named by a hash of the
+sources and flags, and is reused while they are unchanged. The build runs
+at first use, never at import. No PyTorch headers are compiled, so the
+build takes seconds.
+
+Pointers go to the C functions as ``c_void_p`` from ``Tensor.data_ptr()``,
+the stream as ``c_void_p`` from ``torch.cuda.current_stream().cuda_stream``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from ..device import NoCudaDevice
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA kernels cannot be built")
+
+
+def lib_path() -> Path:
+    """Where the library for the current sources lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libnevo_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless the library for these sources exists.
+    The output is written under a temporary name and renamed, so processes
+    that build at the same time never load a half-written file."""
+    out = lib_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            )
+        if verbose and (proc.stdout or proc.stderr):
+            import sys
+
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernel library, built if needed and loaded once per process.
+    Raises ``NoCudaDevice`` on a machine without a CUDA device."""
+    if not torch.cuda.is_available():
+        raise NoCudaDevice("no CUDA device: the CUDA kernels need one")
+    lib = ctypes.CDLL(str(build()))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.nevo_population_linear.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.nevo_population_linear.restype = i32
+    lib.nevo_noise_gradient.argtypes = [vp, vp, vp, i32, i64, vp, vp]
+    lib.nevo_noise_gradient.restype = i32
+    lib.nevo_cuda_error_string.argtypes = [i32]
+    lib.nevo_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a kernel launch returned a non-zero ``cudaError_t``."""
+    if err:
+        msg = lib.nevo_cuda_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,85 @@
+"""Flat parameter-vector layout and initialization.
+
+The counterpart of the JAX package's ops/flat.py:37-103. θ is one flat f32
+vector; each named tensor is a static slice of it, in ParamSpec order. The
+order and offsets are the JAX package's, so a θ vector moves between the
+two packages unchanged (weights.from_jax).
+
+Population use: ``unflatten`` also takes a stacked ``[B, D]`` θ and returns
+``[B, *shape]`` views.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """One named parameter tensor inside the flat vector."""
+
+    name: str
+    shape: Tuple[int, ...]
+    init: str = "normc"  # 'normc' | 'zeros'
+    std: float = 1.0
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+
+def total_dim(specs: Sequence[ParamSpec]) -> int:
+    return sum(s.size for s in specs)
+
+
+def offsets(specs: Sequence[ParamSpec]) -> Dict[str, Tuple[int, int]]:
+    """name → (offset, size) inside the flat vector."""
+    out, off = {}, 0
+    for s in specs:
+        out[s.name] = (off, s.size)
+        off += s.size
+    return out
+
+
+def unflatten(theta: torch.Tensor, specs: Sequence[ParamSpec]) -> Dict[str, torch.Tensor]:
+    """Flat ``[..., D]`` → dict of ``[..., *shape]`` views (no copies)."""
+    lead = tuple(theta.shape[:-1])
+    parts, off = {}, 0
+    for s in specs:
+        parts[s.name] = theta[..., off : off + s.size].reshape(lead + tuple(s.shape))
+        off += s.size
+    return parts
+
+
+def flatten(parts: Dict[str, torch.Tensor], specs: Sequence[ParamSpec]) -> torch.Tensor:
+    """Inverse of ``unflatten`` for one member: dict → flat f32 ``[D]``."""
+    return torch.cat([parts[s.name].reshape(-1).to(torch.float32) for s in specs])
+
+
+def _normc(gen: torch.Generator, shape: Tuple[int, ...], std: float) -> torch.Tensor:
+    """Normalized-column init: randn ``[fan_in, cols]`` columns rescaled to
+    L2 norm ``std``, then reshaped (the reference's tf_util normc)."""
+    flat_shape = (int(np.prod(shape[:-1])), shape[-1])
+    out = torch.randn(flat_shape, generator=gen, dtype=torch.float32)
+    out = out * (std / torch.sqrt(torch.sum(out * out, dim=0, keepdim=True)))
+    return out.reshape(shape)
+
+
+def init_theta(
+    gen: torch.Generator, specs: Sequence[ParamSpec], device: Optional[torch.device] = None
+) -> torch.Tensor:
+    """Fresh flat θ with each spec's initializer, drawn from ``gen`` (a CPU
+    generator, so a seed gives the same θ on every device)."""
+    chunks = []
+    for s in specs:
+        if s.init == "normc":
+            chunks.append(_normc(gen, s.shape, s.std).reshape(-1))
+        elif s.init == "zeros":
+            chunks.append(torch.zeros(s.size, dtype=torch.float32))
+        else:
+            raise ValueError(f"unknown init {s.init!r}")
+    return torch.cat(chunks).to(device or "cpu")

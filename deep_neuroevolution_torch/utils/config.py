@@ -1,0 +1,82 @@
+"""Experiment configuration, GPU-stack schema.
+
+The counterpart of the JAX package's utils/config.py for the flat schema of
+gpu_implementation/configurations/*.json ("game", "model",
+"population_size", "episode_cutoff_mode", "mutation_power", "l2coeff",
+"return_proc_mode", "optimizer"), algorithm ES.
+
+``overrides`` patches a run without editing the file:
+
+* ``game`` — the env to run instead of the file's game. The port's engine
+  has no ALE, so an Atari experiment runs on ``"toy"`` (ToyCatch);
+* ``population_size`` and ``episode_cutoff_mode`` — the file's fields;
+* ``env_kwargs`` — engine knobs: ``batch_size`` (slots, default 256),
+  ``num_threads``, ``pipeline_groups``;
+* ``noise_size`` — noise-table length (default 250M, the reference's);
+* ``theta_hbm_budget`` — bytes allowed for one round's θ batch.
+
+Not ported yet: the CPU-stack schema, GA/RS/NS-ES, device envs.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from .. import models
+from ..algos.es import ESConfig, ESTrainer
+from ..device import resolve_device
+from ..envs.atari import AtariEnv
+from ..ops import optim
+from ..ops.noise import NoiseTable
+
+_OVERRIDES = {
+    "game", "population_size", "episode_cutoff_mode", "env_kwargs", "noise_size", "theta_hbm_budget",
+}
+
+
+def load_experiment(
+    exp: Dict[str, Any],
+    seed: int = 0,
+    overrides: Optional[Dict[str, Any]] = None,
+    device=None,
+) -> ESTrainer:
+    """Experiment dict → ready ES trainer on ``device`` (default cuda)."""
+    overrides = dict(overrides or {})
+    unknown = set(overrides) - _OVERRIDES
+    if unknown:
+        raise ValueError(f"unsupported overrides {sorted(unknown)}; supported: {sorted(_OVERRIDES)}")
+    if "game" not in exp:
+        raise NotImplementedError("only the GPU-stack schema (a 'game' field) is ported yet")
+    if "selection_threshold" in exp:
+        raise NotImplementedError("GA/RS experiments are not ported yet; only ES")
+    device = resolve_device(device)
+    exp = {**exp, **{k: overrides[k] for k in ("game", "population_size", "episode_cutoff_mode") if k in overrides}}
+    # 256 engine slots unless env_kwargs says otherwise (the JAX package's
+    # Atari default, config.py _atari_defaults)
+    env = AtariEnv(exp["game"], **{"batch_size": 256, **overrides.get("env_kwargs", {})})
+    model = models.get_model(exp["model"])(num_actions=env.num_actions)
+    opt_cfg = exp.get("optimizer", {"type": "adam", "args": {"stepsize": 0.01}})
+    cfg = ESConfig(
+        l2coeff=exp.get("l2coeff", 0.005),
+        noise_stdev=exp.get("mutation_power", 0.02),
+        population_size=int(exp["population_size"]),
+        return_proc_mode=exp.get("return_proc_mode", "centered_rank"),
+        episode_cutoff_mode=exp.get("episode_cutoff_mode", "env_default"),
+        **{k: overrides[k] for k in ("theta_hbm_budget",) if k in overrides},
+    )
+    try:
+        noise_table = None
+        if "noise_size" in overrides:
+            noise_table = NoiseTable.from_seed(count=int(overrides["noise_size"]), device=device)
+        return ESTrainer(
+            env,
+            model,
+            cfg,
+            optimizer=optim.make_optimizer(opt_cfg["type"], **opt_cfg["args"]),
+            noise_table=noise_table,
+            seed=seed,
+            device=device,
+        )
+    except BaseException:
+        env.close()  # the trainer that would own the engine does not exist
+        raise

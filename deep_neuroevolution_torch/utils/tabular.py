@@ -1,0 +1,102 @@
+"""Tabular logger — ASCII table on stdout, log.txt and JSONL metrics.
+
+The port's own copy of the JAX package's utils/tabular.py (after
+gpu_implementation/tabular_logger.py:19-237), cut to what the port calls:
+start/stop, record_tabular, dump_tabular, log. The metric names are the
+reference's. Not ported yet: log levels and the TensorBoard events writer.
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import os
+import sys
+import time
+from typing import Any, Dict, Optional
+
+
+class TabularLogger:
+    def __init__(self, log_dir: Optional[str] = None):
+        self.log_dir = log_dir
+        self._kvs: Dict[str, Any] = {}
+        self._text = None
+        self._jsonl = None
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            self._text = open(os.path.join(log_dir, "log.txt"), "a")
+            self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+
+    def record_tabular(self, key: str, val: Any) -> None:
+        self._kvs[key] = val
+
+    def dump_tabular(self) -> None:
+        if not self._kvs:
+            return
+        key_width = max(len(k) for k in self._kvs)
+        val_strs = {}
+        for k, v in self._kvs.items():
+            if hasattr(v, "item"):
+                v = v.item()
+            val_strs[k] = f"{v:<8.3g}" if isinstance(v, float) else str(v)
+        val_width = max(len(s) for s in val_strs.values())
+        dashes = "-" * (key_width + val_width + 7)
+        lines = [dashes]
+        for k, s in val_strs.items():
+            lines.append(f"| {k.ljust(key_width)} | {s.ljust(val_width)} |")
+        lines.append(dashes)
+        out = "\n".join(lines)
+        print(out)
+        sys.stdout.flush()
+        if self._text:
+            self._text.write(out + "\n")
+            self._text.flush()
+        if self._jsonl:
+            rec = {k: (v.item() if hasattr(v, "item") else v) for k, v in self._kvs.items()}
+            rec["_time"] = time.time()
+            self._jsonl.write(json.dumps(rec) + "\n")
+            self._jsonl.flush()
+        self._kvs.clear()
+
+    def log(self, *args) -> None:
+        now = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S.%f")[:-3]
+        msg = f"[{now}] " + " ".join(map(str, args))
+        print(msg)
+        sys.stdout.flush()
+        if self._text:
+            self._text.write(msg + "\n")
+            self._text.flush()
+
+    def close(self) -> None:
+        if self._text:
+            self._text.close()
+        if self._jsonl:
+            self._jsonl.close()
+
+
+# module-level API, as the reference's tabular_logger exposes it
+_logger = TabularLogger()
+
+
+def start(log_dir: str) -> None:
+    global _logger
+    _logger.close()
+    _logger = TabularLogger(log_dir)
+
+
+def stop() -> None:
+    global _logger
+    _logger.close()
+    _logger = TabularLogger()
+
+
+def record_tabular(key, val) -> None:
+    _logger.record_tabular(key, val)
+
+
+def dump_tabular() -> None:
+    _logger.dump_tabular()
+
+
+def log(*args) -> None:
+    _logger.log(*args)

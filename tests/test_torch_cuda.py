@@ -1,0 +1,118 @@
+"""The port's CUDA kernels and its main path on a card, against the plain
+PyTorch versions. Every test here needs a CUDA device, nvcc and g++, and
+skips without them. This file imports no JAX, so it also runs where JAX is
+not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deep_neuroevolution_torch.algos import es
+from deep_neuroevolution_torch.envs.atari import AtariEnv
+from deep_neuroevolution_torch.models import VirtualBNDQN
+from deep_neuroevolution_torch.ops import optim
+from deep_neuroevolution_torch.ops.noise import NoiseTable
+from deep_neuroevolution_torch.ops.noise_gradient import noise_gradient, noise_gradient_plain
+from deep_neuroevolution_torch.ops.population_linear import population_linear, population_linear_plain
+from deep_neuroevolution_torch.utils import tabular
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip where there is none (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels are CUDA C++ with no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _k1_inputs(B, K, N, device, dtype, offset=0):
+    g = torch.Generator().manual_seed(B * 1000 + K + N)
+    x = torch.rand(B, K, generator=g)
+    W = torch.randn(B, K, N, generator=g)
+    # ``offset`` elements in front of W shift its address off 16-byte alignment
+    Wbuf = torch.empty(offset + W.numel(), dtype=dtype, device=device)
+    Wd = Wbuf[offset:].view(B, K, N)
+    Wd.copy_(W.to(device, dtype))
+    return x.to(device, dtype), Wd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape,offset",
+    [((128, 3872, 256), 0), ((5, 3872, 256), 1), ((3, 100, 30), 0), ((2, 7, 1), 0), ((3, 0, 8), 0)],
+)
+def test_population_linear_matches_plain(cuda_device, shape, offset, dtype):
+    """f32 sums in another order: within 1e-5 of max|y|."""
+    x, W = _k1_inputs(*shape, cuda_device, dtype, offset)
+    before = population_linear.launches
+    y = population_linear(x, W)
+    ref = population_linear_plain(x, W)
+    torch.cuda.synchronize()
+    assert population_linear.launches == before + 1
+    assert y.dtype == torch.float32 and y.shape == (shape[0], shape[2])
+    torch.testing.assert_close(y, ref, rtol=0, atol=1e-5 * max(1.0, float(ref.abs().max())))
+
+
+@pytest.mark.parametrize("B", [0, 1, 300, 1000])
+def test_noise_gradient_matches_plain(cuda_device, B):
+    """Unaligned offsets, one slice ending at the last element; f32 sums in
+    another order: within 1e-5 of max|g|."""
+    gen = torch.Generator().manual_seed(B)
+    N, dim = 200_000, 70_001
+    table = torch.randn(N, generator=gen).to(cuda_device)
+    idxs = torch.randint(0, N - dim + 1, (B,), generator=gen, dtype=torch.int32)
+    if B:
+        idxs[0] = N - dim
+    w = torch.randn(B, generator=gen)
+    idxs, w = idxs.to(cuda_device), w.to(cuda_device)
+    g = noise_gradient(table, idxs, w, dim)
+    ref = noise_gradient_plain(table, idxs, w, dim)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(g, ref, rtol=0, atol=1e-5 * max(1.0, float(ref.abs().max())))
+
+
+def test_vbn_forward_card_matches_cpu(cuda_device):
+    """The population forward with K1 against the CPU's plain forward, from
+    the same θ: float32, within 1e-3 of max|score|; equal argmax away from
+    near ties."""
+    model = VirtualBNDQN(num_actions=4)
+    gen = torch.Generator().manual_seed(0)
+    base = model.init_theta(gen)
+    thetas = base[None] + 0.02 * torch.randn(6, model.num_params, generator=gen)
+    ref = torch.rand(16, 84, 84, 4, generator=gen)
+    obs = torch.rand(6, 84, 84, 4, generator=gen)
+    scores = []
+    for dev in (cuda_device, torch.device("cpu")):
+        th = thetas.to(dev)
+        stats = model.batch_ref_stats(th, ref.to(dev))
+        parts, _ = model.prepare_batch_params((th, stats))
+        scores.append(model.batch_scores_parts(parts, obs.to(dev), stats).cpu())
+    card, cpu = scores
+    tol = 1e-3 * max(1.0, float(cpu.abs().max()))
+    torch.testing.assert_close(card, cpu, rtol=0, atol=tol)
+    top2 = cpu.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    assert torch.equal(card.argmax(-1)[clear], cpu.argmax(-1)[clear])
+
+
+def test_es_generation_on_card(cuda_device, monkeypatch):
+    """A small generation at full width on the card: both kernels launch,
+    and θ' is finite."""
+    monkeypatch.setattr(tabular, "dump_tabular", lambda: tabular._logger._kvs.clear())
+    env = AtariEnv("toy", batch_size=8, num_threads=2)
+    model = VirtualBNDQN(num_actions=env.num_actions)
+    tr = es.ESTrainer(env, model, es.ESConfig(population_size=16, episode_cutoff_mode=15),
+                      optimizer=optim.Adam(0.01), noise_table=NoiseTable.from_seed(count=2_000_000),
+                      device=cuda_device)
+    k1, k2 = population_linear.launches, noise_gradient.launches
+    stats = tr.train_step()
+    tr.close()
+    assert population_linear.launches > k1 and noise_gradient.launches == k2 + 1
+    assert stats.returns.shape == (8, 2) and np.isfinite(stats.update_ratio)
+    assert bool(torch.isfinite(tr.theta).all()) and tr.theta.device.type == "cuda"

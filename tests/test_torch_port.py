@@ -1,0 +1,117 @@
+"""Checks on the port as a whole that catch a run on a card breaking before
+it gets there: the port and chip_smoke.py must not import JAX or the JAX
+package (the card's machine has neither), nor build with PyTorch's C++
+extension builder; and without a CUDA device every entry point stops with
+the package's "no CUDA device" error."""
+
+import json
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import deep_neuroevolution_torch
+from deep_neuroevolution_torch import NoCudaDevice, resolve_device
+from deep_neuroevolution_torch import main as cli
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "deep_neuroevolution_torch"
+PORT_MODULES = sorted(
+    m.name for m in pkgutil.walk_packages(deep_neuroevolution_torch.__path__, "deep_neuroevolution_torch.")
+)
+
+# an import of jax or of the JAX package, in any form
+_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|deep_neuroevolution_tpu)\b"
+    r"|__import__\(\s*['\"](jax|deep_neuroevolution_tpu)"
+    r"|import_module\(\s*['\"](jax|deep_neuroevolution_tpu)",
+    re.M,
+)
+
+
+def _port_files():
+    files = [ROOT / "chip_smoke.py"]
+    for ext in ("*.py", "*.cu", "*.cpp", "*.h"):
+        files += [p for p in PORT.rglob(ext) if "_build" not in p.parts]
+    return files
+
+
+def test_every_module_is_listed():
+    assert "deep_neuroevolution_torch.ops.population_linear" in PORT_MODULES
+    assert "deep_neuroevolution_torch.algos.es" in PORT_MODULES
+
+
+def test_no_jax_import_and_no_cpp_extension_in_the_port():
+    """No file of the port or chip_smoke.py imports jax or the JAX package
+    (naming the JAX package's files in prose, as each kernel's note does, is
+    fine), and none uses torch.utils.cpp_extension or torch/extension.h."""
+    offenders = []
+    for path in _port_files():
+        text = path.read_text()
+        if _IMPORT.search(text):
+            offenders.append(f"{path.relative_to(ROOT)}: imports jax or deep_neuroevolution_tpu")
+        if "cpp_extension" in text or "torch/extension.h" in text:
+            offenders.append(f"{path.relative_to(ROOT)}: uses PyTorch's C++ extension builder")
+    assert not offenders, offenders
+
+
+_BLOCKED = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["deep_neuroevolution_tpu"] = None
+import importlib
+for name in {modules!r}:
+    importlib.import_module(name)
+print("imported", len({modules!r}), "modules", flush=True)
+sys.argv = ["chip_smoke.py"]
+runpy.run_path({smoke!r}, run_name="__main__")
+"""
+
+
+def test_imports_and_smoke_without_jax_or_cuda():
+    """With jax and the JAX package blocked, every module of the port
+    imports, and chip_smoke.py stops with the "no CUDA device" error, never
+    an ImportError."""
+    code = _BLOCKED.format(modules=PORT_MODULES, smoke=str(ROOT / "chip_smoke.py"))
+    p = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, timeout=120,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(ROOT)},
+    )
+    assert f"imported {len(PORT_MODULES)} modules" in p.stdout, p.stderr[-2000:]
+    assert p.returncode != 0
+    assert "NoCudaDevice: no CUDA device" in p.stderr, p.stderr[-2000:]
+    assert "ImportError" not in p.stderr and "ModuleNotFoundError" not in p.stderr, p.stderr[-2000:]
+    assert '"ok": true' not in p.stdout
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """device=None means cuda: without a card the trainer, the config loader
+    and the CLI stop with NoCudaDevice, and never fall back to the CPU."""
+    import torch
+
+    from deep_neuroevolution_torch.utils import config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for dev in (None, "cuda", "cuda:0"):
+        with pytest.raises(NoCudaDevice, match="no CUDA device"):
+            resolve_device(dev)
+    exp = json.loads((ROOT / "configurations" / "es_atari_config.json").read_text())
+    with pytest.raises(NoCudaDevice):
+        config.load_experiment(exp, overrides={"game": "toy"})
+    assert cli.main(["train", "--exp_file", str(ROOT / "configurations" / "es_atari_config.json"),
+                     "--overrides", '{"game": "toy"}']) == 1
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_config_rejects_what_is_not_ported():
+    exp = json.loads((ROOT / "configurations" / "es_atari_config.json").read_text())
+    from deep_neuroevolution_torch.utils import config
+
+    with pytest.raises(NotImplementedError, match="no ALE"):
+        config.load_experiment(exp, device="cpu")  # frostbite needs ALE
+    with pytest.raises(ValueError, match="unsupported overrides"):
+        config.load_experiment(exp, overrides={"noise": "virtual"}, device="cpu")
