@@ -18,7 +18,21 @@ ends:
    port's CLI (``main train``) on the ToyCatch engine at the model's full
    width, with the population, cutoff and noise table cut to smoke size.
    Both kernels' launch counters must move, and a small forward on the card
-   must agree with the same forward on the CPU.
+   must agree with the same forward on the CPU;
+5. kernel K3 (large_dqn_fused_scores, the LargeDQN's whole-net forward)
+   against its plain version at B=128 and 256, 4 and 18 actions, beside
+   the split route's time;
+6. kernel K5 (dqn_conv_chain_fused) against its plain version, SmallDQN and
+   LargeDQN geometries, float32 and bfloat16, beside the batched-product
+   conv chain's time; and K1 at the LargeDQN's fc shape;
+7. two GA generations of configurations/ga_atari_config.json (LargeDQN)
+   through ``main train`` on the ToyCatch engine at full width, the
+   population, cutoff and noise table cut to smoke size: K3's counter must
+   move, every chain of generation 2 be of length 2 (but the elite carried
+   over), and a small forward on the card match the CPU's plain K3;
+8. one random-search generation of configurations/rs_atari_config.json
+   (SmallDQN) through the Python API with ``conv_impl='fused'``: the K5
+   and K1 counters must move.
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -28,10 +42,12 @@ numbers, and the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -51,6 +67,25 @@ SMOKE_OVERRIDES = {
     "noise_size": 25_000_000,
     "env_kwargs": {"batch_size": 256},
 }
+
+# phase 7's cut of ga_atari_config.json (population 1000, cutoff 5000, a
+# 250M-float table, frostbite); the LargeDQN's widths are not cut, and the
+# validation and test ladder keeps the config's sizes (10 × 30, 200)
+GA_OVERRIDES = {
+    "game": "toy",
+    "population_size": 512,  # two fitness rounds of 256 engine slots
+    "episode_cutoff_mode": 200,
+    "noise_size": 25_000_000,
+    "env_kwargs": {"batch_size": 256},
+    "theta_hbm_budget": 8 * 2**30,  # 256 LargeDQN members (4.1 GB of f32 θ) per round
+}
+# K3 at B=128, what each of the GA's two pipeline groups of 256 slots gives
+# it, and B=256, one group of 256; K5 at B=128 (SmallDQN f32, the RS
+# phase's per-group shape) and at B=256 for both geometries and types
+K3_BATCHES = (128, 256)
+K5_BATCHES = (128, 256)
+# phase 8's cut of rs_atari_config.json (population 1000, cutoff 5000)
+RS_CUT = {"population_size": 256, "episode_cutoff_mode": 200, "noise_size": 25_000_000, "batch_size": 256}
 
 
 class Phase:
@@ -87,10 +122,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float, dtype: str):
+def bound(nbytes: float, ops, dtype: str = None):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate of their type."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    operations over the peak rate of their type; ``ops`` is a count of
+    ``dtype`` operations or a dict dtype → count."""
+    ops = ops if isinstance(ops, dict) else {dtype: ops}
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = sum(n / PEAK_FLOPS[d] for d, n in ops.items())
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -114,17 +152,19 @@ def build_all() -> None:
     _cuda_build.load()
 
 
-def check_population_linear(device) -> dict:
+def check_population_linear(device, cases=None) -> dict:
+    """K1 against its plain version at each (B, K, N, dtype) of ``cases``;
+    returns the first case's numbers."""
     import torch
 
     from deep_neuroevolution_torch.ops.population_linear import population_linear, population_linear_plain
 
     gen = torch.Generator(device=device).manual_seed(1)
-    out = {}
-    # B=256 is the fc's shape with one group of 256 slots; B=128 is what each
-    # of the main path's two pipeline groups gives it
-    for B, dtype in ((256, torch.float32), (256, torch.bfloat16), (128, torch.float32)):
-        K, N = 3872, 256
+    out = []
+    # the VBN-DQN's fc: B=256 is its shape with one group of 256 slots; B=128
+    # is what each of the ES generation's two pipeline groups gives it
+    for B, K, N, dtype in cases or ((256, 3872, 256, torch.float32), (256, 3872, 256, torch.bfloat16),
+                                    (128, 3872, 256, torch.float32)):
         x = torch.rand((B, K), generator=gen, device=device).to(dtype)
         W = torch.randn((B, K, N), generator=gen, device=device).to(dtype)
         y = population_linear(x, W)
@@ -143,9 +183,9 @@ def check_population_linear(device) -> dict:
         row = dict(B=B, K=K, N=N, dtype=name, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         print("population_linear " + json.dumps(row), flush=True)
-        out[(B, name)] = row
+        out.append(row)
         del x, W, y, ref
-    return out[(256, "float32")]
+    return out[0]
 
 
 def union_bytes(idx, dim: int) -> int:
@@ -208,16 +248,15 @@ def run_generation(device) -> dict:
         "--iterations", "1", "--overrides", json.dumps(SMOKE_OVERRIDES), "--device", str(device),
     ]
     print("main " + " ".join(argv), flush=True)
-    population_linear.launches = 0
-    noise_gradient.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     trainer = cli.cmd_train(cli.build_parser().parse_args(argv))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"population_linear": population_linear.launches, "noise_gradient": noise_gradient.launches}
+    launches = read_counters()
     print("launches " + json.dumps(launches), flush=True)
-    for name, n in launches.items():
-        require(n > 0, f"the main path never launched {name}")
+    for name in (population_linear.__name__, noise_gradient.__name__):
+        require(launches[name] > 0, f"the main path never launched {name}")
     return dict(trainer=trainer, seconds=seconds, launches=launches)
 
 
@@ -259,6 +298,254 @@ def check_generation(run: dict) -> None:
     require(bool((card.argmax(-1) == cpu.argmax(-1))[clear].all()), "argmax differs")
 
 
+def kernel_counters():
+    """Each kernel's wrapper, by kernel name; ``.launches`` is its count."""
+    from deep_neuroevolution_torch.ops.fused_dqn import dqn_conv_chain_fused, large_dqn_fused_scores
+    from deep_neuroevolution_torch.ops.noise_gradient import noise_gradient
+    from deep_neuroevolution_torch.ops.population_linear import population_linear
+
+    return {f.__name__: f for f in (population_linear, noise_gradient, large_dqn_fused_scores, dqn_conv_chain_fused)}
+
+
+def zero_counters() -> None:
+    for f in kernel_counters().values():
+        f.launches = 0
+
+
+def read_counters() -> dict:
+    return {name: f.launches for name, f in kernel_counters().items()}
+
+
+def random_genomes(model, B: int, gen, device):
+    """B first-generation GA genomes, θ = ε·scale_by, ε ~ N(0, 1)."""
+    import torch
+
+    sb = model.scale_by(model.scale_style, device)
+    return torch.randn((B, model.num_params), generator=gen, device=device) * sb
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_top_actions(card, ref, tol: float, what: str) -> int:
+    """Equal argmax wherever the reference's top two scores are more than
+    ``tol`` apart; returns how many rows that is."""
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    require(bool((card.argmax(-1) == ref.argmax(-1))[clear].all()), f"{what}: argmax differs")
+    return int(clear.sum())
+
+
+def check_large_fused(device) -> list:
+    """K3 against its plain version on the same inputs. Tolerance
+    1e-3·max|score|: both round conv1's and conv2's outputs to bf16 and sum
+    in f32, in other orders, so a sum near a bf16 rounding boundary can
+    round one ulp the other way (on an H100 up to 4.3e-4·max, at B=1 in
+    tests/test_torch_cuda.py). Dropping those bf16 roundings moves the
+    scores by 2e-3·max or more (tests/test_torch_dqn.py TestCardTolerance),
+    so the limit holds the kernel to the JAX kernel's rounding points."""
+    import torch
+
+    from deep_neuroevolution_torch.models.core import extract_patches
+    from deep_neuroevolution_torch.models.dqn import LargeDQN
+    from deep_neuroevolution_torch.ops import fused_dqn as fk
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    rows = []
+    for B in K3_BATCHES:
+        for na in (4, 18):
+            fused, split = (LargeDQN(num_actions=na, forward_impl=f) for f in ("fused", "split"))
+            th = random_genomes(fused, B, gen, device)
+            obs = torch.rand((B, 84, 84, 4), generator=gen, device=device)
+            parts, _ = fused.prepare_batch_params((th, None))
+            ops = dict(parts["__fused_lg__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+            y = fk.large_dqn_fused_scores(ops)
+            ref = fk.large_dqn_fused_scores_plain(ops)
+            torch.cuda.synchronize()
+            err = float((y[:, :na] - ref[:, :na]).abs().max())
+            tol = 1e-3 * float(ref[:, :na].abs().max())
+            require(bool(torch.isfinite(y).all()), "large_dqn_fused_scores returned non-finite values")
+            require(err <= tol, f"large_dqn_fused_scores B={B} A={na}: max abs err {err} > {tol}")
+            require(bool((y[:, na:] < -1e8).all()), "a padded action lane lost its -1e9 bias")
+            clear = check_top_actions(y[:, :na], ref[:, :na], tol, f"large_dqn_fused_scores B={B} A={na}")
+            ms = cuda_ms(lambda: fk.large_dqn_fused_scores(ops), 20)
+            plain_ms = cuda_ms(lambda: fk.large_dqn_fused_scores_plain(ops), 3, warmup=1)
+            sparts, _ = split.prepare_batch_params((th, None))
+            split_ms = cuda_ms(lambda: split.batch_scores_parts(sparts, obs), 10)
+            conv_ops = 2 * B * (441 * 256 * 32 + 121 * 512 * 64 + 121 * 576 * 64)  # bf16 products
+            f32_ops = 2 * B * (121 * 64 * 512 + 512 * 64)  # the fc (f32 x3) and the out layer
+            bound_ms, bound_by = bound(nbytes(*ops.values(), y), {"bfloat16": conv_ops, "float32": f32_ops})
+            row = dict(B=B, num_actions=na, max_abs_err=err, tol=tol, argmax_rows_checked=clear, ms=ms,
+                       plain_ms=plain_ms, split_ms=split_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+            print("large_dqn_fused_scores " + json.dumps(row), flush=True)
+            rows.append(row)
+            del th, parts, ops, sparts, y, ref
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_conv_chain(device) -> list:
+    """K5 against its plain version. float32: within 1e-5·max|x| (sums in
+    another order). bfloat16: within 1e-3·max|x|, as K3 (the bf16 roundings
+    of the intermediates are kept; dropping them moves x by 2e-3·max or
+    more)."""
+    import torch
+
+    from deep_neuroevolution_torch.models.dqn import LargeDQN, SmallDQN
+    from deep_neuroevolution_torch.ops import fused_dqn as fk
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    rows = []
+    cases = [(SmallDQN, "float32", K5_BATCHES[0])] + [
+        (c, d, K5_BATCHES[1]) for c in (SmallDQN, LargeDQN) for d in ("float32", "bfloat16")
+    ]
+    for cls, dt, B in cases:
+        kw = {"forward_impl": "split"} if cls is LargeDQN else {}
+        fused, einsum = (cls(num_actions=4, compute_dtype=dt, conv_impl=impl, **kw) for impl in ("fused", "einsum"))
+        th = random_genomes(fused, B, gen, device)
+        obs = torch.rand((B, 84, 84, 4), generator=gen, device=device)
+        parts, _ = fused.prepare_batch_params((th, None))
+        args = fused.conv_chain_args(parts, obs)
+        y = fk.dqn_conv_chain_fused(*args)
+        ref = fk.dqn_conv_chain_plain(*args)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        tol = (1e-5 if dt == "float32" else 1e-3) * float(ref.abs().max())
+        require(bool(torch.isfinite(y).all()), "dqn_conv_chain_fused returned non-finite values")
+        require(err <= tol, f"dqn_conv_chain_fused {cls.__name__} {dt} B={B}: max abs err {err} > {tol}")
+        ms = cuda_ms(lambda: fk.dqn_conv_chain_fused(*args), 20)
+        plain_ms = cuda_ms(lambda: fk.dqn_conv_chain_plain(*args), 5)
+        einsum_ms = cuda_ms(lambda: einsum.conv_acts(parts, obs), 10)
+        (_, c1, _, _), (_, c2, _, _) = cls.LAYERS[:2]
+        c3 = cls.LAYERS[2][1] if len(cls.LAYERS) > 2 else 0
+        ops = 2 * B * (441 * 256 * c1 + 121 * 16 * c1 * c2 + 121 * 9 * c2 * c3)
+        bound_ms, bound_by = bound(nbytes(*args, y), ops, dt)
+        row = dict(model=cls.__name__, dtype=dt, B=B, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                   einsum_ms=einsum_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        print("dqn_conv_chain_fused " + json.dumps(row), flush=True)
+        rows.append(row)
+        del th, parts, args, y, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_ga(device) -> dict:
+    """Two GA generations through the CLI; the tabular rows come back from
+    the run's metrics.jsonl."""
+    import torch
+
+    from deep_neuroevolution_torch import main as cli
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        argv = [
+            "train", "--algo", "ga", "--exp_file", str(ROOT / "configurations" / "ga_atari_config.json"),
+            "--iterations", "2", "--overrides", json.dumps(GA_OVERRIDES), "--device", str(device),
+            "--log_dir", log_dir,
+        ]
+        print("main " + " ".join(argv), flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        zero_counters()
+        t0 = time.perf_counter()
+        trainer = cli.cmd_train(cli.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated(device)
+        with open(Path(log_dir) / "metrics.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+    print("launches " + json.dumps(launches), flush=True)
+    require(launches["large_dqn_fused_scores"] > 0, "the GA never launched large_dqn_fused_scores")
+    return dict(trainer=trainer, seconds=seconds, launches=launches, rows=rows, peak_bytes=peak)
+
+
+def check_ga(run: dict) -> None:
+    """The two generations' state, and a small forward of four parents on
+    the card (K3) against the CPU's plain K3."""
+    import torch
+
+    from deep_neuroevolution_torch.models.dqn import LargeDQN
+
+    tr = run["trainer"]
+    st = tr.state
+    pop = GA_OVERRIDES["population_size"]
+    require(st.it == 2 and len(run["rows"]) == 2, "the GA did not finish two generations")
+    require(len(st.population) == pop, f"population of {len(st.population)}")
+    lens = [len(o.seeds) for o in st.population]
+    # every chain of generation 2 has length 2; only the elite carried over
+    # from generation 1 (num_elites) may keep its length-1 chain
+    require(set(lens) <= {1, 2} and lens.count(1) <= tr.config.num_elites, f"chain lengths {sorted(set(lens))}")
+    require(all(math.isfinite(o.fitness) for o in st.population), "non-finite fitness")
+    th = tr.cached_parent_thetas
+    n_parents = min(tr.config.selection_threshold, pop)
+    require(th is not None and tuple(th.shape) == (n_parents, tr.model.num_params)
+            and bool(torch.isfinite(th).all()), "parent cache is not finite [T, D]")
+    for r in run["rows"]:
+        require(r["PopulationEpCount"] >= pop and math.isfinite(r["PopulationEpRewMean"]), f"bad row {r}")
+
+    gen = torch.Generator().manual_seed(5)
+    obs = torch.rand((4, 84, 84, 4), generator=gen)
+    na = tr.model.num_actions
+    card_parts, _ = tr.model.prepare_batch_params((th[:4], None))
+    require("__fused_lg__" in card_parts, "the card's LargeDQN forward is not on K3")
+    card = tr.model.batch_scores_fused(card_parts["__fused_lg__"], obs.to(tr.device)).cpu()[:, :na]
+    cpu_model = LargeDQN(num_actions=na, forward_impl="fused")
+    cpu_parts, _ = cpu_model.prepare_batch_params((th[:4].cpu(), None))
+    cpu = cpu_model.batch_scores_fused(cpu_parts["__fused_lg__"], obs)[:, :na]
+    err = float((card - cpu).abs().max())
+    tol = 1e-3 * float(cpu.abs().max())  # as in phase 5: the CPU sums in yet another order
+    print(f"GA forward card (K3) vs cpu (plain): max abs err {err:.3g} (tol {tol:.3g})", flush=True)
+    require(err <= tol, f"card forward disagrees with the CPU's plain K3: {err} > {tol}")
+    check_top_actions(card, cpu, tol, "GA forward")
+
+
+def run_rs(device) -> dict:
+    """One random-search generation of rs_atari_config.json's SmallDQN with
+    the K5 conv route, through the Python API."""
+    import torch
+
+    from deep_neuroevolution_torch import models
+    from deep_neuroevolution_torch.algos.ga import GAConfig, RSTrainer
+    from deep_neuroevolution_torch.envs.atari import AtariEnv
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
+
+    exp = json.loads((ROOT / "configurations" / "rs_atari_config.json").read_text())
+    env = AtariEnv("toy", batch_size=RS_CUT["batch_size"])
+    # the config names no conv route, as in the JAX package: K5 is asked for here
+    model = dataclasses.replace(models.get_model(exp["model"])(num_actions=env.num_actions), conv_impl="fused")
+    cfg = GAConfig(
+        population_size=RS_CUT["population_size"],
+        selection_threshold=exp["selection_threshold"],
+        validation_threshold=exp["validation_threshold"],
+        num_validation_episodes=exp["num_validation_episodes"],
+        num_test_episodes=exp["num_test_episodes"],
+        mutation_power=exp["mutation_power"],
+        episode_cutoff_mode=RS_CUT["episode_cutoff_mode"],
+        timesteps=exp["timesteps"],
+    )
+    print(f"RSTrainer {type(model).__name__} conv_impl=fused {json.dumps(dataclasses.asdict(cfg))}", flush=True)
+    try:
+        tr = RSTrainer(env, model, cfg, noise_table=NoiseTable.from_seed(count=RS_CUT["noise_size"], device=device),
+                       device=device)
+        torch.cuda.reset_peak_memory_stats(device)
+        zero_counters()
+        t0 = time.perf_counter()
+        tr.train(1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counters()
+    finally:
+        env.close()
+    print("launches " + json.dumps(launches), flush=True)
+    for name in ("dqn_conv_chain_fused", "population_linear"):
+        require(launches[name] > 0, f"random search never launched {name}")
+    require(tr.state.it == 1 and tr.best_seeds is not None and len(tr.best_seeds) == 1
+            and math.isfinite(tr.best_score), "random search kept no best genome")
+    return dict(trainer=tr, seconds=seconds, launches=launches, peak_bytes=torch.cuda.max_memory_allocated(device))
+
+
+
 def main() -> int:
     import torch
 
@@ -293,6 +580,7 @@ def main() -> int:
         run = run_generation(device)
         check_generation(run)
     tr = run["trainer"]
+    es_launches = run["launches"]
     timesteps = int(tr.last_stats.lengths.sum())
     gen_s = tr.last_stats.seconds  # train_step alone; set-up is the CLI's rest
     print(
@@ -304,19 +592,64 @@ def main() -> int:
         flush=True,
     )
 
-    def entry(name, source, replaces, k):
+    del run, tr
+    torch.cuda.empty_cache()
+
+    with Phase("K3 large_dqn_fused_scores"):
+        k3 = check_large_fused(device)
+    with Phase("K5 dqn_conv_chain_fused"):
+        k5 = check_conv_chain(device)
+    with Phase("K1 population_linear at the LargeDQN fc"):
+        check_population_linear(device, [(128, 7744, 512, torch.float32)])
+    torch.cuda.empty_cache()
+
+    with Phase("GA generations"):
+        ga = run_ga(device)
+        check_ga(ga)
+    ga_launches = ga["launches"]
+    for r in ga["rows"]:
+        sec, steps = r["TimeElapsedThisIter"], r["TimestepsThisIter"]
+        print("ga_generation " + json.dumps(dict(
+            iteration=r["Iteration"], seconds=sec, timesteps=steps, population_timesteps=r["PopulationTimesteps"],
+            validation_timesteps=r["ValidationTimestepsThisIter"], frames_per_s=4 * steps / sec,
+            reward_mean=r["PopulationEpRewMean"], elite_test_mean=r.get("TruncatedPopulationEliteTestRewMean"),
+        )), flush=True)
+    print("ga_run " + json.dumps(dict(seconds=ga["seconds"], peak_memory_gb=ga["peak_bytes"] / 1e9,
+                                      overrides=GA_OVERRIDES)), flush=True)
+    del ga
+    torch.cuda.empty_cache()
+
+    with Phase("RS generation"):
+        rs = run_rs(device)
+    st = rs["trainer"].state
+    print("rs_generation " + json.dumps(dict(
+        seconds=rs["seconds"], timesteps=st.timesteps_so_far, frames_per_s=4 * st.timesteps_so_far / rs["seconds"],
+        best_score=rs["trainer"].best_score, peak_memory_gb=rs["peak_bytes"] / 1e9, cut=RS_CUT,
+    )), flush=True)
+
+    def entry(name, source, replaces, launches, k, **extra):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": run["launches"][name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "launches": launches[name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"],
+            "library_ms": k["library_ms"], **extra,
         }
 
+    # K3's and K5's numbers at the shape their path gives them: B=128, one
+    # pipeline group of 256 slots, ToyCatch's 4 actions, float32 for K5
+    k3_row = next(r for r in k3 if (r["B"], r["num_actions"]) == (128, 4))
+    k5_row = k5[0]
     kernels = [
         entry("population_linear", "deep_neuroevolution_torch/csrc/population_linear.cu",
-              "deep_neuroevolution_tpu/ops/pallas_forward.py:59", k1),
+              "deep_neuroevolution_tpu/ops/pallas_forward.py:59", es_launches, k1),
         entry("noise_gradient", "deep_neuroevolution_torch/csrc/noise_gradient.cu",
-              "deep_neuroevolution_tpu/ops/pallas_kernels.py:120", k2),
+              "deep_neuroevolution_tpu/ops/pallas_kernels.py:120", es_launches, k2),
+        entry("large_dqn_fused_scores", "deep_neuroevolution_torch/csrc/large_dqn_fused.cu",
+              "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:298", ga_launches, k3_row,
+              split_ms=k3_row["split_ms"]),
+        entry("dqn_conv_chain_fused", "deep_neuroevolution_torch/csrc/dqn_conv_chain.cu",
+              "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:422", rs["launches"], k5_row,
+              einsum_ms=k5_row["einsum_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

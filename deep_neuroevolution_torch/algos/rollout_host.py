@@ -17,8 +17,13 @@ Randomness comes from one integer ``seed``: it seeds a NumPy generator that
 draws the noop counts and the engine's per-episode seeds, in the same
 order as the JAX package, so equal seeds give equal episodes in both.
 
+``n_slots`` runs only slots ``[0, n)``; each result carries the slots'
+final states (RAM bytes) as their behavior characterization.
+
 Not ported yet: obs-stat sampling, BC trajectories, mirrored pairs,
-``n_slots`` and ``rollout_host_vec``; overlap through a second CUDA stream.
+``rollout_host_vec`` (vector-observation engines) and the ``rollout_host``
+dispatcher between it and ``rollout_host_batch``; overlap through a second
+CUDA stream.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ class RolloutResult(NamedTuple):
     returns: np.ndarray  # [B] f32 undiscounted episode return
     sign_returns: np.ndarray  # [B] f32 Σ sign(r_t)
     lengths: np.ndarray  # [B] i32 engine steps taken, the terminal one included
+    bc: np.ndarray  # [B, final_state_size] f32 final RAM bytes (tf_atari.cpp:114-119)
 
 
 def _frames_to(frames: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -59,13 +65,20 @@ def rollout_host_batch(
     timestep_limit: int,
     device: torch.device,
     pipeline_groups: Optional[int] = None,
+    n_slots: Optional[int] = None,
 ) -> RolloutResult:
     """Evaluate B policies on the B engine slots, one episode each.
 
     ``params`` is ``(thetas [B, D], stats)`` on ``device``. ``timestep_limit``
     counts engine steps (each is 4 emulator frames). ``pipeline_groups``
-    defaults to the env's."""
+    defaults to the env's. ``n_slots`` < B runs only slots ``[0, n_slots)``
+    with n_slots policies (the GA's validation and test ladder evaluates a
+    handful of members)."""
     B, out_hw = henv.batch_size, henv.warp_size
+    sub = None
+    if n_slots is not None and n_slots < B:
+        B = max(int(n_slots), 1)
+        sub = np.arange(B, dtype=np.int32)
     G = pipeline_groups if pipeline_groups is not None else getattr(henv, "pipeline_groups", 1)
     if G < 1 or B % G != 0:
         G = 1
@@ -74,9 +87,9 @@ def rollout_host_batch(
     noops = rng.integers(1, 31, size=B)  # tf_atari.py:65
     # fresh engine episode seeds on every call, drawn after the noops
     ep_seeds = rng.integers(1, 2**31 - 1, size=B, dtype=np.int64).astype(np.int32)
-    henv.reset(noops, max_frames=timestep_limit * 4, seeds=ep_seeds)
+    henv.reset(noops, indices=sub, max_frames=timestep_limit * 4, seeds=ep_seeds)
 
-    frames0 = henv.observe()
+    frames0 = henv.observe(indices=sub)
     sls = [slice(g * Bg, (g + 1) * Bg) for g in range(G)]
     gidx = [np.arange(g * Bg, (g + 1) * Bg, dtype=np.int32) for g in range(G)]
     params_g = [act_fn.prepare(_slice_params(params, s)) for s in sls]
@@ -111,7 +124,7 @@ def rollout_host_batch(
             sret[alive_idx] += np.sign(r_sub)
             length[alive_idx] += 1
             done[alive_idx] |= d_sub
-    return RolloutResult(ret, sret, length)
+    return RolloutResult(ret, sret, length, henv.final_state(indices=sub))
 
 
 def collect_ref_batch_host(henv, seed: int, device: torch.device, batch_size: int = 128) -> torch.Tensor:

@@ -62,5 +62,9 @@ class AtariEnv:
         """Gray frame pairs ``[n, 2, 210, 160]`` uint8."""
         return self._env.observe_gray(indices=indices)
 
+    def final_state(self, indices=None) -> np.ndarray:
+        """RAM bytes as floats ``[n, 128]`` (tf_atari.cpp:114-119)."""
+        return self._env.final_state(indices=indices)
+
     def close(self) -> None:
         self._env.close()

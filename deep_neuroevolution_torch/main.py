@@ -5,6 +5,12 @@ The counterpart of the JAX package's main.py ``cmd_train``:
     python -m deep_neuroevolution_torch.main train \\
         --exp_file configurations/es_atari_config.json --iterations 1 \\
         --overrides '{"game": "toy", "population_size": 512, "episode_cutoff_mode": 200}'
+    python -m deep_neuroevolution_torch.main train --algo ga \\
+        --exp_file configurations/ga_atari_config.json --iterations 2 \\
+        --overrides '{"game": "toy", "population_size": 512, "episode_cutoff_mode": 200}'
+
+``--algo`` picks es, ga or rs; without it a file with "selection_threshold"
+runs the GA and any other file ES.
 
 It runs on the CUDA device unless ``--device cpu`` is given, and exits with
 the "no CUDA device" error where there is none. Each generation prints the
@@ -34,7 +40,7 @@ def cmd_train(args):
         tlogger.start(args.log_dir)
     tlogger.log(f"experiment: {json.dumps(exp, sort_keys=True)}")
     overrides = json.loads(args.overrides) if args.overrides else {}
-    trainer = config.load_experiment(exp, seed=args.seed, overrides=overrides, device=args.device)
+    trainer = config.load_experiment(exp, seed=args.seed, overrides=overrides, device=args.device, algo=args.algo)
     try:
         if args.profile_dir:
             trainer.train(args.iterations - 1)
@@ -88,8 +94,9 @@ def profile_generation(trainer, out_dir: str) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="deep_neuroevolution_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    t = sub.add_parser("train", help="run an ES experiment (GPU-stack JSON schema)")
+    t = sub.add_parser("train", help="run an ES, GA or RS experiment (GPU-stack JSON schema)")
     t.add_argument("--exp_file", required=True, help="experiment JSON path")
+    t.add_argument("--algo", choices=["es", "ga", "rs"], help="algorithm (default: from the file)")
     t.add_argument("--log_dir", default="", help="log.txt and metrics.jsonl go here")
     t.add_argument("--iterations", type=int, default=1, help="generations to run")
     t.add_argument("--seed", type=int, default=0)

@@ -87,6 +87,10 @@ class Model:
         """Fresh flat θ with each layer's initializer."""
         return flat.init_theta(gen, self.specs, device)
 
+    def scale_by(self, style: str = "fan_in", device: Optional[torch.device] = None) -> torch.Tensor:
+        """``[D]`` per-element genome init scale (base.py:166-175)."""
+        return flat.scale_by_vector(self.specs, style, device)
+
     def unflatten(self, theta: torch.Tensor) -> Dict[str, torch.Tensor]:
         return flat.unflatten(theta, self.specs)
 

@@ -3,7 +3,7 @@
 ``HostBatchEnv`` is the batched, index-addressable env interface of the
 reference's TF env ops (gym_tensorflow/tf_env.py:27-80): reset(indices,
 noops, max_frames, seeds), step(actions, indices) → (reward, done),
-observe(indices). NumPy staging buffers are reused across calls.
+observe(indices), final_state(indices). NumPy staging buffers are reused across calls.
 """
 
 from __future__ import annotations
@@ -41,6 +41,10 @@ def _load() -> ctypes.CDLL:
     lib.nevo_set_gray_lut.argtypes = [ctypes.c_void_p, u8ptr]
     lib.nevo_observe_gray.restype = None
     lib.nevo_observe_gray.argtypes = [ctypes.c_void_p, iptr, ctypes.c_int, u8ptr]
+    lib.nevo_final_state_size.restype = ctypes.c_int
+    lib.nevo_final_state_size.argtypes = [ctypes.c_void_p]
+    lib.nevo_final_state.restype = None
+    lib.nevo_final_state.argtypes = [ctypes.c_void_p, iptr, ctypes.c_int, fptr]
     return lib
 
 
@@ -59,10 +63,12 @@ class HostBatchEnv:
         lib.nevo_obs_shape(self._h, dims)
         self.frames_per_obs, self.height, self.width = dims[0], dims[1], dims[2]
         self.num_actions = lib.nevo_action_count(self._h)
+        self.final_state_size = lib.nevo_final_state_size(self._h)
         self._all = np.arange(batch_size, dtype=np.int32)
         self._rew = np.zeros(batch_size, np.float32)
         self._done = np.zeros(batch_size, np.uint8)
         self._obs = np.zeros((batch_size, self.frames_per_obs, self.height, self.width), np.uint8)
+        self._fs = np.zeros((batch_size, self.final_state_size), np.float32)
 
     def _idx(self, indices) -> np.ndarray:
         if indices is None:
@@ -110,6 +116,15 @@ class HostBatchEnv:
         n = idx.size
         self._lib.nevo_observe_gray(self._h, idx, n, self._obs[:n].reshape(-1))
         return self._obs[:n].copy()
+
+    def final_state(self, indices=None) -> np.ndarray:
+        """Each slot's final state ``[n, final_state_size]`` f32: the RAM
+        bytes as floats (tf_atari.cpp:114-119), the GA's behavior
+        characterization. A copy."""
+        idx = self._idx(indices)
+        n = idx.size
+        self._lib.nevo_final_state(self._h, idx, n, self._fs[:n].reshape(-1))
+        return self._fs[:n].copy()
 
     def close(self) -> None:
         """Stop the engine's threads and free it; idempotent."""

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-One nvcc call compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface:
+Each ``csrc/*.cu`` (which may include the shared ``csrc/*.cuh`` headers) is
+compiled by its own nvcc process, all started together, and one more nvcc
+call links the objects into one shared library with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libnevo_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <tmp>/<name>.o     # one per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o _build/libnevo_kernels-<hash>.so <tmp>/*.o
 
 Each exported function returns a ``cudaError_t``. The library goes to the
 package's ``_build/`` directory (git ignores it), is named by a hash of the
@@ -18,6 +20,7 @@ the stream as ``c_void_p`` from ``torch.cuda.current_stream().cuda_stream``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -34,14 +37,16 @@ from ..device import NoCudaDevice
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 
 def sources() -> list:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -57,37 +62,41 @@ def _nvcc() -> str:
 def lib_path() -> Path:
     """Where the library for the current sources lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libnevo_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless the library for these sources exists.
-    The output is written under a temporary name and renamed, so processes
+    The library is linked under a temporary name and renamed, so processes
     that build at the same time never load a half-written file."""
     out = lib_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
-        if verbose and (proc.stdout or proc.stderr):
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources()]
+        with concurrent.futures.ThreadPoolExecutor(len(objs)) as pool:
+            logs = list(pool.map(
+                _run, ([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj] for src, obj in zip(sources(), objs))
+            ))
+        lib = str(Path(tmp) / "lib.so")
+        logs.append(_run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]))
+        if verbose and any(logs):
             import sys
 
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            print("".join(logs), file=sys.stderr)
+        os.replace(lib, out)
     return out
 
 
@@ -103,6 +112,10 @@ def load() -> ctypes.CDLL:
     lib.nevo_population_linear.restype = i32
     lib.nevo_noise_gradient.argtypes = [vp, vp, vp, i32, i64, vp, vp]
     lib.nevo_noise_gradient.restype = i32
+    lib.nevo_large_dqn_fused.argtypes = [vp] * 12 + [i32, vp]
+    lib.nevo_large_dqn_fused.restype = i32
+    lib.nevo_dqn_conv_chain.argtypes = [vp] * 8 + [i32, i32, i32, i32, i32, vp]
+    lib.nevo_dqn_conv_chain.restype = i32
     lib.nevo_cuda_error_string.argtypes = [i32]
     lib.nevo_cuda_error_string.restype = ctypes.c_char_p
     return lib

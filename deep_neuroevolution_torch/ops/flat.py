@@ -7,6 +7,10 @@ two packages unchanged (weights.from_jax).
 
 Population use: ``unflatten`` also takes a stacked ``[B, D]`` θ and returns
 ``[B, *shape]`` views.
+
+``scale_by_vector`` is the GPU stack's genome init scale (θ₀ = ε·scale_by;
+the JAX package's flat.py:141-168), bit-exact with the JAX package's. Not ported yet:
+``reinit_theta`` (CPU-style genomes) and ``partial_load``.
 """
 
 from __future__ import annotations
@@ -83,3 +87,30 @@ def init_theta(
         else:
             raise ValueError(f"unknown init {s.init!r}")
     return torch.cat(chunks).to(device or "cpu")
+
+
+def default_scale_by(spec: ParamSpec, style: str = "fan_in") -> float:
+    """Per-parameter genome scale for GPU-style seed reconstruction.
+
+    style='fan_in' — gpu dqn.py:26-28: std/√(prod(shape[:-1])) for weights.
+    style='base'   — gpu base.py:46-49: std·√((shape[-2]+shape[-1])·prod(shape[:-2])/2).
+    Biases always 0 (base.py:50-52)."""
+    if spec.init == "zeros":
+        return 0.0
+    shape = spec.shape
+    if style == "fan_in":
+        return spec.std / float(np.sqrt(np.prod(shape[:-1])))
+    if style == "base":
+        factor = (shape[-2] + shape[-1]) * float(np.prod(shape[:-2], dtype=np.float64) if len(shape) > 2 else 1.0) / 2.0
+        return spec.std * float(np.sqrt(factor))
+    raise ValueError(f"unknown scale_by style {style!r}")
+
+
+def scale_by_vector(
+    specs: Sequence[ParamSpec], style: str = "fan_in", device: Optional[torch.device] = None
+) -> torch.Tensor:
+    """The per-element scale vector ``[D]`` f32 (base.py:166-175): each
+    spec's scale, rounded once to float32, repeated over its elements."""
+    return torch.cat(
+        [torch.full((s.size,), default_scale_by(s, style), dtype=torch.float32) for s in specs]
+    ).to(device or "cpu")

@@ -15,6 +15,11 @@ gradient kernel (csrc/noise_gradient.cu) takes any offset, so that
 alignment is not carried over.
 
 Index draws use an explicit CPU ``torch.Generator``, never the global RNG.
+
+``noise_rows`` is the JAX package's ``noise_rows`` for a materialized
+table (noise.py:152-166): rows at start offsets, each offset clamped to the
+last valid start as ``lax.dynamic_slice`` clamps it. Not ported yet:
+``VirtualNoise`` and ``from_key``.
 """
 
 from __future__ import annotations
@@ -73,3 +78,14 @@ class NoiseTable:
         return torch.randint(0, self.size - dim + 1, (n,), generator=gen, dtype=torch.int64).to(
             torch.int32
         )
+
+
+def noise_rows(table: torch.Tensor, idxs: torch.Tensor, dim: int) -> torch.Tensor:
+    """``[B, dim]`` rows ``table[i : i + dim]`` of a ``[count]`` table for
+    start offsets ``idxs [B]``, on the table's device. Offsets outside
+    ``[0, count - dim]`` are clamped into it (``lax.dynamic_slice``'s rule)."""
+    count = int(table.shape[0])
+    if count < dim:
+        raise ValueError(f"noise table ({count}) smaller than dim ({dim})")
+    idxs = idxs.to(device=table.device, dtype=torch.int64).clamp(0, count - dim)
+    return NoiseTable(table).get_batch(idxs, dim)

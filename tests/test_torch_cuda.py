@@ -11,8 +11,11 @@ import pytest
 import torch
 
 from deep_neuroevolution_torch.algos import es
+from deep_neuroevolution_torch.algos import ga
 from deep_neuroevolution_torch.envs.atari import AtariEnv
-from deep_neuroevolution_torch.models import VirtualBNDQN
+from deep_neuroevolution_torch.models import LargeDQN, SmallDQN, VirtualBNDQN
+from deep_neuroevolution_torch.models.core import extract_patches
+from deep_neuroevolution_torch.ops import fused_dqn as fk
 from deep_neuroevolution_torch.ops import optim
 from deep_neuroevolution_torch.ops.noise import NoiseTable
 from deep_neuroevolution_torch.ops.noise_gradient import noise_gradient, noise_gradient_plain
@@ -116,3 +119,90 @@ def test_es_generation_on_card(cuda_device, monkeypatch):
     assert population_linear.launches > k1 and noise_gradient.launches == k2 + 1
     assert stats.returns.shape == (8, 2) and np.isfinite(stats.update_ratio)
     assert bool(torch.isfinite(tr.theta).all()) and tr.theta.device.type == "cuda"
+
+
+def _genomes(model, B, seed, device):
+    """B first-generation genomes θ = ε·scale_by, drawn on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, model.num_params, generator=g) * model.scale_by()).to(device)
+
+
+def _frames(B, seed, device):
+    return torch.rand(B, 84, 84, 4, generator=torch.Generator().manual_seed(seed + 1)).to(device)
+
+
+@pytest.mark.parametrize("num_actions", [4, 18])
+@pytest.mark.parametrize("B", [1, 7, 128])
+def test_large_dqn_fused_matches_plain(cuda_device, B, num_actions):
+    """K3 against its plain version on the card: within 1e-3·max|score|
+    (both keep the bf16 roundings of x1 and x2 and sum in f32 in other
+    orders, so a rounding can flip one ulp; dropping the roundings moves
+    the scores by 2e-3·max or more, TestCardTolerance in test_torch_dqn.py),
+    equal argmax away from near ties, padded lanes at −1e9."""
+    model = LargeDQN(num_actions=num_actions, forward_impl="fused")
+    parts, _ = model.prepare_batch_params((_genomes(model, B, B, cuda_device), None))
+    obs = _frames(B, B, cuda_device)
+    ops = dict(parts["__fused_lg__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+    before = fk.large_dqn_fused_scores.launches
+    y = fk.large_dqn_fused_scores(ops)
+    ref = fk.large_dqn_fused_scores_plain(ops)
+    torch.cuda.synchronize()
+    assert fk.large_dqn_fused_scores.launches == before + 1
+    assert y.shape == (B, 64) and y.dtype == torch.float32
+    tol = 1e-3 * float(ref[:, :num_actions].abs().max())
+    err = float((y[:, :num_actions] - ref[:, :num_actions]).abs().max())
+    print(f"K3 B={B} A={num_actions}: max abs err {err} (tol {tol})")  # shown with pytest -s
+    torch.testing.assert_close(y[:, :num_actions], ref[:, :num_actions], rtol=0, atol=tol)
+    assert bool((y[:, num_actions:] < -1e8).all())
+    top2 = ref[:, :num_actions].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    assert torch.equal(y.argmax(-1)[clear], ref.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cls", [SmallDQN, LargeDQN])
+@pytest.mark.parametrize("B", [1, 5, 256])
+def test_conv_chain_matches_plain(cuda_device, B, cls, dtype):
+    """K5 against its plain version on the card: float32 within 1e-5·max|x|
+    (sums in another order), bfloat16 within 1e-3·max|x| (the roundings of
+    the intermediates kept, as at K3)."""
+    kw = {"forward_impl": "split"} if cls is LargeDQN else {}
+    model = cls(num_actions=4, compute_dtype=dtype, conv_impl="fused", **kw)
+    parts, _ = model.prepare_batch_params((_genomes(model, B, B, cuda_device), None))
+    args = model.conv_chain_args(parts, _frames(B, B, cuda_device))
+    before = fk.dqn_conv_chain_fused.launches
+    y = fk.dqn_conv_chain_fused(*args)
+    ref = fk.dqn_conv_chain_plain(*args)
+    torch.cuda.synchronize()
+    assert fk.dqn_conv_chain_fused.launches == before + 1
+    assert y.shape == (B, 121, model.LAYERS[-1][1]) and y.dtype == torch.float32
+    tol = (1e-5 if dtype == "float32" else 1e-3) * float(ref.abs().max())
+    print(f"K5 {cls.__name__} {dtype} B={B}: max abs err {float((y - ref).abs().max())} (tol {tol})")
+    torch.testing.assert_close(y, ref, rtol=0, atol=tol)
+
+
+def test_fused_wrappers_reject_misaligned_inputs(cuda_device):
+    """The kernels read 16-byte vectors: a misaligned operand raises."""
+    model = LargeDQN(num_actions=4, forward_impl="fused")
+    parts, _ = model.prepare_batch_params((_genomes(model, 1, 0, cuda_device), None))
+    ops = dict(parts["__fused_lg__"], patches1=torch.zeros(1, 441, 256, dtype=torch.bfloat16, device=cuda_device))
+    buf = torch.zeros(ops["wf"].numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        fk.large_dqn_fused_scores(dict(ops, wf=buf[1:].view(ops["wf"].shape)))
+
+
+def test_ga_generation_on_card(cuda_device, monkeypatch):
+    """Two small GA generations of the LargeDQN at full width on the card:
+    the automatic route runs K3, and θ stays finite."""
+    monkeypatch.setattr(tabular, "dump_tabular", lambda: tabular._logger._kvs.clear())
+    env = AtariEnv("toy", batch_size=8, num_threads=2)
+    model = LargeDQN(num_actions=env.num_actions)
+    cfg = ga.GAConfig(population_size=16, selection_threshold=4, validation_threshold=2, num_validation_episodes=2,
+                      num_test_episodes=2, episode_cutoff_mode=15)
+    tr = ga.GATrainer(env, model, cfg, noise_table=NoiseTable.from_seed(count=5_000_000), device=cuda_device)
+    before = fk.large_dqn_fused_scores.launches
+    tr.train(2)
+    tr.close()
+    assert fk.large_dqn_fused_scores.launches > before
+    assert tr.state.it == 2 and tr.cached_parent_thetas.device.type == "cuda"
+    assert bool(torch.isfinite(tr.cached_parent_thetas).all())

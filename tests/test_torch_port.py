@@ -10,6 +10,7 @@ import pkgutil
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -107,6 +108,30 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_slice_two_modules_are_listed():
+    for name in ("ops.fused_dqn", "ops.genome", "ops.schedules", "models.dqn", "algos.ga"):
+        assert f"deep_neuroevolution_torch.{name}" in PORT_MODULES
+
+
+@pytest.mark.parametrize("algo", ["ga", "rs"])
+def test_ga_entry_points_raise_without_cuda(monkeypatch, algo):
+    """``main train --algo ga|rs`` and the GA trainer stop with NoCudaDevice
+    without a card; nothing falls back to the CPU."""
+    import torch
+
+    from deep_neuroevolution_torch.algos import ga
+    from deep_neuroevolution_torch.models import SmallDQN
+    from deep_neuroevolution_torch.utils import config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = ROOT / "configurations" / f"{algo}_atari_config.json"
+    with pytest.raises(NoCudaDevice):
+        config.load_experiment(json.loads(path.read_text()), overrides={"game": "toy"}, algo=algo)
+    assert cli.main(["train", "--algo", algo, "--exp_file", str(path), "--overrides", '{"game": "toy"}']) == 1
+    with pytest.raises(NoCudaDevice):
+        ga.GATrainer(types.SimpleNamespace(is_host_env=True), SmallDQN(num_actions=4), ga.GAConfig())
+
+
 def test_config_rejects_what_is_not_ported():
     exp = json.loads((ROOT / "configurations" / "es_atari_config.json").read_text())
     from deep_neuroevolution_torch.utils import config
@@ -115,3 +140,7 @@ def test_config_rejects_what_is_not_ported():
         config.load_experiment(exp, device="cpu")  # frostbite needs ALE
     with pytest.raises(ValueError, match="unsupported overrides"):
         config.load_experiment(exp, overrides={"noise": "virtual"}, device="cpu")
+    with pytest.raises(ValueError, match="unsupported overrides"):  # the GA device arm's chunk
+        config.load_experiment(exp, overrides={"game": "toy", "eval_batch": 64}, device="cpu", algo="ga")
+    with pytest.raises(NotImplementedError, match="nses"):
+        config.load_experiment(exp, overrides={"game": "toy"}, device="cpu", algo="nses")
