@@ -32,7 +32,19 @@ ends:
    over), and a small forward on the card match the CPU's plain K3;
 8. one random-search generation of configurations/rs_atari_config.json
    (SmallDQN) through the Python API with ``conv_impl='fused'``: the K5
-   and K1 counters must move.
+   and K1 counters must move;
+9. kernels K4 (vbn_dqn_fused1_scores) and K6 (vbn_dqn_fused_scores), the
+   VBN-DQN's whole-net forwards, against their plain versions at B=1, 8,
+   128 and 256, 4 and 18 actions, beside the split route's time (convs, K1
+   and the out layer) in float32 and bfloat16;
+10. one ES generation of configurations/es_atari_config.json at phase 4's
+   cut through the Python API with ``forward_impl='fused1'``: K4's counter
+   must move, the 8 eval episodes run, and a small forward on the card (K4)
+   must agree with the CPU's plain K4;
+11. the same with ``forward_impl='fused'`` and K6;
+12. the same with ``forward_impl='split'`` (K1), so that the three routes'
+   generations are timed alike, each after a warm-up of the process.
+   Each of phases 10-12 also times its trainer's eval episodes alone.
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -50,6 +62,8 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -86,6 +100,12 @@ K3_BATCHES = (128, 256)
 K5_BATCHES = (128, 256)
 # phase 8's cut of rs_atari_config.json (population 1000, cutoff 5000)
 RS_CUT = {"population_size": 256, "episode_cutoff_mode": 200, "noise_size": 25_000_000, "batch_size": 256}
+# K4 and K6 at B=8 (the eval episodes), 128 (one of an ES round's two
+# pipeline groups) and 256, and at B=1
+VBN_BATCHES = (1, 8, 128, 256)
+# the VBN-DQN's whole-net kernels: forward_impl → (kernel, its plain version's name)
+VBN_ROUTES = {"fused1": ("vbn_dqn_fused1_scores", "vbn_dqn_fused1_scores_plain"),
+              "fused": ("vbn_dqn_fused_scores", "vbn_dqn_fused_scores_plain")}
 
 
 class Phase:
@@ -283,11 +303,13 @@ def check_generation(run: dict) -> None:
     require(tr.last_stats.returns.shape == (pairs, 2), f"returns shape {tr.last_stats.returns.shape}")
     require(bool(((lengths >= 1) & (lengths <= cutoff)).all()), "episode lengths outside [1, cutoff]")
     require(math.isfinite(tr.last_stats.update_ratio), "update ratio is not finite")
+    evals = tr.last_stats.eval_lengths
+    require(evals.size == tr.config.num_eval_episodes == 8, f"EvalEpCount {evals.size}, expected 8")
+    require(bool(((evals >= 1) & (evals <= cutoff)).all()) and bool(np.isfinite(tr.last_stats.eval_returns).all()),
+            "eval episodes outside [1, cutoff] or with non-finite returns")
 
     # 4 perturbed members of the new θ on 4 reference frames, card vs CPU
-    idx = torch.tensor([0, 1, 12345, tr.noise.size - D], dtype=torch.int32)
-    thetas = tr.theta[None] + 0.02 * tr.noise.get_batch(idx, D)
-    obs = tr.ref_batch[:4]
+    thetas, obs = perturbed_members(tr)
     card, cpu = (small_forward(tr, thetas, obs, dev) for dev in (tr.device, torch.device("cpu")))
     err = float((card - cpu).abs().max())
     tol = 1e-3 * max(1.0, float(cpu.abs().max()))  # float32, other summation orders
@@ -298,13 +320,25 @@ def check_generation(run: dict) -> None:
     require(bool((card.argmax(-1) == cpu.argmax(-1))[clear].all()), "argmax differs")
 
 
+def perturbed_members(tr):
+    """Four members θ + 0.02·ε of a trainer's θ and four reference frames,
+    on the CPU."""
+    import torch
+
+    D = tr.model.num_params
+    idx = torch.tensor([0, 1, 12345, tr.noise.size - D], dtype=torch.int32)
+    thetas = tr.theta[None] + 0.02 * tr.noise.get_batch(idx.to(tr.noise.noise.device), D)
+    return thetas.cpu(), tr.ref_batch[:4].cpu()
+
+
 def kernel_counters():
     """Each kernel's wrapper, by kernel name; ``.launches`` is its count."""
-    from deep_neuroevolution_torch.ops.fused_dqn import dqn_conv_chain_fused, large_dqn_fused_scores
+    from deep_neuroevolution_torch.ops import fused_dqn as fk
     from deep_neuroevolution_torch.ops.noise_gradient import noise_gradient
     from deep_neuroevolution_torch.ops.population_linear import population_linear
 
-    return {f.__name__: f for f in (population_linear, noise_gradient, large_dqn_fused_scores, dqn_conv_chain_fused)}
+    return {f.__name__: f for f in (population_linear, noise_gradient, fk.large_dqn_fused_scores,
+                                    fk.vbn_dqn_fused1_scores, fk.dqn_conv_chain_fused, fk.vbn_dqn_fused_scores)}
 
 
 def zero_counters() -> None:
@@ -545,6 +579,154 @@ def run_rs(device) -> dict:
     return dict(trainer=tr, seconds=seconds, launches=launches, peak_bytes=torch.cuda.max_memory_allocated(device))
 
 
+def vbn_members(model, B: int, gen, device):
+    """B members θ + 0.02·ε around a fresh init θ (the ES's perturbed
+    population), ε ~ N(0, 1) drawn on the card."""
+    import torch
+
+    base = model.init_theta(torch.Generator().manual_seed(B), device)
+    return base[None] + 0.02 * torch.randn((B, model.num_params), generator=gen, device=device)
+
+
+def check_vbn_fused(device) -> list:
+    """K4 and K6 against their plain versions on the same inputs, with the
+    stats of a reference batch of random frames. Tolerance 1e-3·max|score|:
+    both keep the bf16 roundings (x1; x2 in K6) and sum in f32, in other
+    orders, so a sum near a rounding boundary can round one ulp the other
+    way; dropping or swapping a rounding point moves the scores by 3.7e-3·max
+    or more (tests/test_torch_vbn_fused.py TestCardTolerance)."""
+    import torch
+
+    from deep_neuroevolution_torch.models import VirtualBNDQN
+    from deep_neuroevolution_torch.models.core import extract_patches
+    from deep_neuroevolution_torch.ops import fused_dqn as fk
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    ref_frames = torch.rand((128, 84, 84, 4), generator=gen, device=device)
+    rows = []
+    for B in VBN_BATCHES:
+        for na in (4, 18):
+            split = {dt: VirtualBNDQN(num_actions=na, compute_dtype=dt) for dt in ("float32", "bfloat16")}
+            th = vbn_members(split["float32"], B, gen, device)
+            stats = split["float32"].batch_ref_stats(th, ref_frames)
+            obs = torch.rand((B, 84, 84, 4), generator=gen, device=device)
+            split_ms = {}
+            for dt, sm in split.items():
+                sparts, _ = sm.prepare_batch_params((th, stats))
+                split_ms[dt] = cuda_ms(lambda: sm.batch_scores_parts(sparts, obs, stats), 10)
+                del sparts
+            patches1 = extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256)
+            for impl, (name, plain_name) in VBN_ROUTES.items():
+                fn, plain = getattr(fk, name), getattr(fk, plain_name)
+                parts, _ = VirtualBNDQN(num_actions=na, forward_impl=impl).prepare_batch_params((th, stats))
+                ops = dict(parts["__fused__"], patches1=patches1)
+                y = fn(ops)
+                ref = plain(ops)
+                torch.cuda.synchronize()
+                err = float((y[:, :na] - ref[:, :na]).abs().max())
+                tol = 1e-3 * float(ref[:, :na].abs().max())
+                require(bool(torch.isfinite(y).all()), f"{name} returned non-finite values")
+                require(err <= tol, f"{name} B={B} A={na}: max abs err {err} > {tol}")
+                require(bool((y[:, na:] < -1e8).all()), f"{name}: a padded action lane lost its -1e9 bias")
+                clear = check_top_actions(y[:, :na], ref[:, :na], tol, f"{name} B={B} A={na}")
+                ms = cuda_ms(lambda: fn(ops), 20)
+                plain_ms = cuda_ms(lambda: plain(ops), 3, warmup=1)
+                conv_ops = 2 * B * (441 * 256 * 16 + 121 * 256 * 32)  # bf16 products
+                fc_ops = 2 * B * 121 * 32 * 256  # x2 f32 (K4) or bf16 (K6) times bf16 weights
+                f32_ops = 2 * B * 256 * 64  # the out layer
+                ops_by = {"bfloat16": conv_ops + (fc_ops if impl == "fused" else 0),
+                          "float32": f32_ops + (fc_ops if impl == "fused1" else 0)}
+                bound_ms, bound_by = bound(nbytes(*ops.values(), y), ops_by)
+                row = dict(B=B, num_actions=na, max_abs_err=err, tol=tol, argmax_rows_checked=clear, ms=ms,
+                           plain_ms=plain_ms, split_ms=split_ms["float32"], split_bf16_ms=split_ms["bfloat16"],
+                           library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                print(f"{name} " + json.dumps(row), flush=True)
+                rows.append(dict(row, name=name))
+                del parts, ops, y, ref
+            del th, stats, obs, patches1
+            torch.cuda.empty_cache()
+    return rows
+
+
+def run_es_route(device, impl: str) -> dict:
+    """One ES generation of es_atari_config.json at phase 4's cut with the
+    VBN-DQN on ``forward_impl=impl``, through the Python API."""
+    import torch
+
+    from deep_neuroevolution_torch import models
+    from deep_neuroevolution_torch.algos.es import ESConfig, ESTrainer
+    from deep_neuroevolution_torch.envs.atari import AtariEnv
+    from deep_neuroevolution_torch.ops import optim
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
+
+    exp = json.loads((ROOT / "configurations" / "es_atari_config.json").read_text())
+    env = AtariEnv(SMOKE_OVERRIDES["game"], **SMOKE_OVERRIDES["env_kwargs"])
+    # the config names no forward route, as in the JAX package: it is asked for here
+    model = dataclasses.replace(models.get_model(exp["model"])(num_actions=env.num_actions), forward_impl=impl)
+    cfg = ESConfig(
+        l2coeff=exp["l2coeff"], noise_stdev=exp["mutation_power"], population_size=SMOKE_OVERRIDES["population_size"],
+        return_proc_mode=exp["return_proc_mode"], episode_cutoff_mode=SMOKE_OVERRIDES["episode_cutoff_mode"],
+    )
+    print(f"ESTrainer {type(model).__name__} forward_impl={impl} {json.dumps(dataclasses.asdict(cfg))}", flush=True)
+    try:
+        tr = ESTrainer(env, model, cfg, optimizer=optim.make_optimizer(exp["optimizer"]["type"], **exp["optimizer"]["args"]),
+                       noise_table=NoiseTable.from_seed(count=SMOKE_OVERRIDES["noise_size"], device=device),
+                       device=device)
+        zero_counters()
+        t0 = time.perf_counter()
+        tr.train(1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counters()
+        # one more pass of the eval episodes alone, for their share of the generation
+        t0 = time.perf_counter()
+        tr._host_eval(tr._draw_eval_seed())
+        torch.cuda.synchronize()
+        eval_seconds = time.perf_counter() - t0
+    finally:
+        env.close()
+    print("launches " + json.dumps(launches), flush=True)
+    name = VBN_ROUTES[impl][0] if impl in VBN_ROUTES else "population_linear"
+    require(launches[name] > 0, f"forward_impl={impl!r} never launched {name}")
+    return dict(trainer=tr, seconds=seconds, launches=launches, eval_seconds=eval_seconds)
+
+
+def check_es_route(run: dict, impl: str) -> None:
+    """The generation's outputs, and a small forward of four members of the
+    new θ on the card (K4 or K6) against the CPU's plain version on the
+    same θ and stats."""
+    import torch
+
+    from deep_neuroevolution_torch.models import VirtualBNDQN
+
+    tr = run["trainer"]
+    require(tr.iteration == 1 and bool(torch.isfinite(tr.theta).all()), "the trainer did not finish its generation")
+    st = tr.last_stats
+    require(st.returns.shape == (SMOKE_OVERRIDES["population_size"] // 2, 2) and bool(np.isfinite(st.returns).all()),
+            f"returns {st.returns.shape}")
+    require(st.eval_returns.size == 8 and bool(np.isfinite(st.eval_returns).all()),
+            f"EvalEpCount {st.eval_returns.size}, expected 8")
+    require(math.isfinite(st.update_ratio), "update ratio is not finite")
+
+    if impl not in VBN_ROUTES:
+        return  # the split route's card-vs-CPU check is phase 4's
+    thetas, obs = perturbed_members(tr)
+    stats = tr.model.batch_ref_stats(thetas.to(tr.device), tr.ref_batch.to(tr.device))
+    card_parts, _ = tr.model.prepare_batch_params((thetas.to(tr.device), stats))
+    require("__fused__" in card_parts, f"the card's forward is not on forward_impl={impl!r}")
+    na = tr.model.num_actions
+    card = tr.model.batch_scores_fused(card_parts["__fused__"], obs.to(tr.device)).cpu()[:, :na]
+    cpu_model = VirtualBNDQN(num_actions=na, forward_impl=impl)
+    cpu_stats = type(stats)(*(tuple(x.cpu() for x in f) for f in stats))  # the same stats on both sides
+    cpu_parts, _ = cpu_model.prepare_batch_params((thetas, cpu_stats))
+    cpu = cpu_model.batch_scores_fused(cpu_parts["__fused__"], obs)[:, :na]
+    err = float((card - cpu).abs().max())
+    tol = 1e-3 * float(cpu.abs().max())  # as in phase 9
+    print(f"ES forward_impl={impl} card vs cpu (plain): max abs err {err:.3g} (tol {tol:.3g})", flush=True)
+    require(err <= tol, f"card forward disagrees with the CPU's plain version: {err} > {tol}")
+    check_top_actions(card, cpu, tol, f"ES forward_impl={impl}")
+
+
 
 def main() -> int:
     import torch
@@ -622,10 +804,31 @@ def main() -> int:
     with Phase("RS generation"):
         rs = run_rs(device)
     st = rs["trainer"].state
+    rs_launches = rs["launches"]
     print("rs_generation " + json.dumps(dict(
         seconds=rs["seconds"], timesteps=st.timesteps_so_far, frames_per_s=4 * st.timesteps_so_far / rs["seconds"],
         best_score=rs["trainer"].best_score, peak_memory_gb=rs["peak_bytes"] / 1e9, cut=RS_CUT,
     )), flush=True)
+    del rs
+    torch.cuda.empty_cache()
+
+    with Phase("K4/K6 vbn_dqn_fused"):
+        vbn = check_vbn_fused(device)
+    route_launches = {}
+    for impl in (*VBN_ROUTES, "split"):
+        with Phase(f"ES generation, {impl}"):
+            es_run = run_es_route(device, impl)
+            check_es_route(es_run, impl)
+        st = es_run["trainer"].last_stats
+        steps = int(st.lengths.sum())
+        print(f"es_{impl}_generation " + json.dumps(dict(
+            seconds=st.seconds, setup_seconds=es_run["seconds"] - st.seconds, timesteps=steps,
+            frames_per_s=4 * steps / st.seconds, eval_episodes=int(st.eval_returns.size),
+            eval_return_mean=float(st.eval_returns.mean()), eval_seconds=es_run["eval_seconds"],
+        )), flush=True)
+        route_launches[impl] = es_run["launches"]
+        del es_run
+        torch.cuda.empty_cache()
 
     def entry(name, source, replaces, launches, k, **extra):
         return {
@@ -639,6 +842,8 @@ def main() -> int:
     # pipeline group of 256 slots, ToyCatch's 4 actions, float32 for K5
     k3_row = next(r for r in k3 if (r["B"], r["num_actions"]) == (128, 4))
     k5_row = k5[0]
+    k4_row, k6_row = (next(r for r in vbn if (r["name"], r["B"], r["num_actions"]) == (VBN_ROUTES[i][0], 128, 4))
+                      for i in ("fused1", "fused"))
     kernels = [
         entry("population_linear", "deep_neuroevolution_torch/csrc/population_linear.cu",
               "deep_neuroevolution_tpu/ops/pallas_forward.py:59", es_launches, k1),
@@ -647,9 +852,15 @@ def main() -> int:
         entry("large_dqn_fused_scores", "deep_neuroevolution_torch/csrc/large_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:298", ga_launches, k3_row,
               split_ms=k3_row["split_ms"]),
+        entry("vbn_dqn_fused1_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",
+              "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:147", route_launches["fused1"], k4_row,
+              split_ms=k4_row["split_ms"]),
         entry("dqn_conv_chain_fused", "deep_neuroevolution_torch/csrc/dqn_conv_chain.cu",
-              "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:422", rs["launches"], k5_row,
+              "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:422", rs_launches, k5_row,
               einsum_ms=k5_row["einsum_ms"]),
+        entry("vbn_dqn_fused_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",
+              "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:471", route_launches["fused"], k6_row,
+              split_ms=k6_row["split_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,14 +14,18 @@ es_distributed/es.py and gpu_implementation/es.py:
 * centered ranks, g = Σ(w⁺−w⁻)ᵢ·εᵢ / (2n) through kernel K2, and the
   optimizer step on −g + l2coeff·θ (es.py:281-301);
 * the episode-cutoff DSL and its adaptive bump (es.py:169-186, 308-311);
+* ``num_eval_episodes`` noiseless episodes of the pre-update θ each
+  generation, on the first engine slots (es.py:588-611), logged as the
+  reference's ``Eval*`` metrics;
 * the reference's tabular metric names (es.py:314-343).
 
 Host-side draws (θ init, noise offsets, rollout seeds) come from one CPU
 ``torch.Generator`` seeded with ``seed``; ``_draw_round`` is the single
-place a round's randomness is drawn.
+place a round's randomness is drawn, ``_draw_eval_seed`` the eval
+episodes'.
 
-Not ported yet: quota mode (episodes/timesteps per batch), eval episodes,
-obs-stat merging, VINE dumps, device envs.
+Not ported yet: quota mode (episodes/timesteps per batch), obs-stat
+merging, mirrored pairs (``mirror_crn``), VINE dumps, device envs.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ class ESConfig:
     population_size: int = 0  # episodes per generation (gpu es.py:197)
     return_proc_mode: str = "centered_rank"
     episode_cutoff_mode: Any = "env_default"
+    num_eval_episodes: int = 8  # noiseless episodes of θ per generation
     theta_hbm_budget: int = 2**31  # bytes allowed for one round's [2·pairs, D] θ batch
 
 
@@ -93,6 +98,8 @@ class GenStats(NamedTuple):
     grad_norm: float
     update_ratio: float
     seconds: float  # the generation's wall time (TimeElapsedThisIter)
+    eval_returns: np.ndarray  # [num_eval_episodes] returns of the noiseless θ
+    eval_lengths: np.ndarray  # [num_eval_episodes]
 
 
 class ESTrainer:
@@ -146,6 +153,10 @@ class ESTrainer:
         idxs = self.noise.sample_index_batch(self.gen, self.model.num_params, npairs)
         return idxs, self._draw_seed()
 
+    def _draw_eval_seed(self) -> int:
+        """The rollout seed of a generation's eval episodes."""
+        return self._draw_seed()
+
     # -------------------------------------------------------------- rounds
 
     def _npairs_round(self) -> int:
@@ -177,6 +188,22 @@ class ESTrainer:
         pair = lambda x: np.stack([x[:npairs], x[npairs : 2 * npairs]], axis=1)  # noqa: E731
         return idxs, pair(res.returns), pair(res.sign_returns), pair(res.lengths)
 
+    def _host_eval(self, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Noiseless episodes of θ on the first ``n = min(num_eval_episodes,
+        slots)`` engine slots, every slot with θ and one member's reference
+        stats (es.py:588-611). Returns (returns [n], lengths [n])."""
+        n = min(self.config.num_eval_episodes, self.env.batch_size)
+        thetas = self.theta[None].expand(n, -1)
+        stats = None
+        if self.model.needs_ref_batch:
+            one = self.model.batch_ref_stats(self.theta[None], self.ref_batch)
+            stats = type(one)(*(tuple(x.expand(n, -1) for x in f) for f in one))
+        res = rollout_host_batch(
+            self.env, self.model.make_batch_act(), (thetas, stats), seed, int(self.cutoff.tslimit), self.device,
+            n_slots=n,
+        )
+        return res.returns[:n], res.lengths[:n]
+
     # ---------------------------------------------------------- generation
 
     def _compute_update(self, noise_idxs: torch.Tensor, returns_n2: np.ndarray, signreturns_n2: np.ndarray):
@@ -195,6 +222,7 @@ class ESTrainer:
     def train_step(self) -> GenStats:
         cfg = self.config
         step_tstart = time.time()
+        eval_seed = self._draw_eval_seed() if cfg.num_eval_episodes > 0 else None
         npairs = self._npairs_round()
         all_idxs, all_rets, all_srets, all_lens = [], [], [], []
         episodes = 0
@@ -211,9 +239,17 @@ class ESTrainer:
         with record_function("es.update"):
             g, opt_state, theta, ratio = self._compute_update(noise_idxs, returns_n2, np.concatenate(all_srets))
         gnorm = float(torch.sum(g * g))
-        return self._finalize_generation(opt_state, theta, float(ratio), gnorm, returns_n2, lengths_n2, step_tstart)
+        eval_rets, eval_lens = np.zeros(0, np.float32), np.zeros(0, np.int32)
+        if eval_seed is not None:
+            with record_function("es.eval"):
+                eval_rets, eval_lens = self._host_eval(eval_seed)  # θ before the update
+        return self._finalize_generation(
+            opt_state, theta, float(ratio), gnorm, returns_n2, lengths_n2, eval_rets, eval_lens, step_tstart
+        )
 
-    def _finalize_generation(self, opt_state, theta, ratio, gnorm, returns_n2, lengths_n2, step_tstart) -> GenStats:
+    def _finalize_generation(
+        self, opt_state, theta, ratio, gnorm, returns_n2, lengths_n2, eval_rets, eval_lens, step_tstart
+    ) -> GenStats:
         """State swap, cutoff curriculum, and the reference-named metrics."""
         self.cutoff = update_cutoff(self.cutoff, lengths_n2)
         self.opt_state, self.theta = opt_state, theta
@@ -221,14 +257,20 @@ class ESTrainer:
         self.episodes_so_far += int(lengths_n2.size)
         self.timesteps_so_far += int(lengths_n2.sum())
         step_tend = time.time()
-        nan = float("nan")
         tlogger.record_tabular("EpRewMean", returns_n2.mean())
         tlogger.record_tabular("EpRewStd", returns_n2.std())
         tlogger.record_tabular("EpLenMean", lengths_n2.mean())
         tlogger.record_tabular("TimestepLimitPerEpisode", int(self.cutoff.tslimit))
-        for name in ("EvalEpRewMean", "EvalEpRewMedian", "EvalEpRewStd", "EvalEpLenMean", "EvalPopRank"):
-            tlogger.record_tabular(name, nan)  # eval episodes are not ported yet
-        tlogger.record_tabular("EvalEpCount", 0)
+        none = eval_rets.size == 0
+        tlogger.record_tabular("EvalEpRewMean", np.nan if none else eval_rets.mean())
+        tlogger.record_tabular("EvalEpRewMedian", np.nan if none else np.median(eval_rets))
+        tlogger.record_tabular("EvalEpRewStd", np.nan if none else eval_rets.std())
+        tlogger.record_tabular("EvalEpLenMean", np.nan if none else eval_lens.mean())
+        tlogger.record_tabular(
+            "EvalPopRank",
+            np.nan if none else np.searchsorted(np.sort(returns_n2.ravel()), eval_rets).mean() / returns_n2.size,
+        )
+        tlogger.record_tabular("EvalEpCount", int(eval_rets.size))
         tlogger.record_tabular("Norm", float(torch.sum(theta * theta)))
         tlogger.record_tabular("GradNorm", gnorm)
         tlogger.record_tabular("UpdateRatio", ratio)
@@ -246,7 +288,9 @@ class ESTrainer:
             "TimestepsPerSecondThisIter", int(lengths_n2.sum()) / max(step_tend - step_tstart, 1e-9)
         )
         tlogger.dump_tabular()
-        self.last_stats = GenStats(returns_n2, lengths_n2, gnorm, ratio, step_tend - step_tstart)
+        self.last_stats = GenStats(
+            returns_n2, lengths_n2, gnorm, ratio, step_tend - step_tstart, eval_rets, eval_lens
+        )
         return self.last_stats
 
     def train(self, iterations: int):

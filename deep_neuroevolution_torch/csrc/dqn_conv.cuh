@@ -1,5 +1,5 @@
 // The conv stages of the reference DQN geometries, shared by kernels K3
-// (large_dqn_fused.cu) and K5 (dqn_conv_chain.cu).
+// (large_dqn_fused.cu), K5 (dqn_conv_chain.cu) and K4/K6 (vbn_dqn_fused.cu).
 //
 // One block computes one population member. Its activations live in shared
 // memory; its weights are read from device memory (and served from L1 after
@@ -22,6 +22,11 @@
 // and walks K eight values at a time: 16-byte loads of eight activations
 // per row, and eight 4-channel slices of the weight. Sums are float32; the
 // products of bfloat16 inputs are exact in float32.
+//
+// The epilogue after each product is relu(h + b[co]) (BiasRelu, the DQNs'
+// conv bias) or relu(h·a[co] + c[co]) (ScaleShiftRelu, a folded virtual
+// batch norm); conv1_stage and conv2_stage take the bias pointer and use
+// BiasRelu, their *_epi forms take either.
 
 #pragma once
 
@@ -102,24 +107,39 @@ __device__ __forceinline__ void tap_fma(float (&acc)[R][4], const TA* const (&sr
   }
 }
 
-// out[p·CO + co] = relu(acc + bias[co]), rounded to TO, for the rows in range.
-template <int R, int P, int CO, int TPY, typename TO>
-__device__ __forceinline__ void store_relu(const float (&acc)[R][4], const float* __restrict__ bias,
-                                           int py, int co0, TO* __restrict__ out) {
+// relu(h + b[co]).
+struct BiasRelu {
+  const float* b;
+  __device__ __forceinline__ float operator()(float h, int co) const { return fmaxf(h + b[co], 0.f); }
+};
+
+// relu(h·a[co] + c[co]), the product and the sum each rounded (no FMA), as
+// the separate multiply and add of the plain PyTorch version.
+struct ScaleShiftRelu {
+  const float* a;
+  const float* c;
+  __device__ __forceinline__ float operator()(float h, int co) const {
+    return fmaxf(__fadd_rn(__fmul_rn(h, a[co]), c[co]), 0.f);
+  }
+};
+
+// out[p·CO + co] = epi(acc, co), rounded to TO, for the rows in range.
+template <int R, int P, int CO, int TPY, typename Epi, typename TO>
+__device__ __forceinline__ void store_epi(const float (&acc)[R][4], Epi epi, int py, int co0,
+                                          TO* __restrict__ out) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int p = py + r * TPY;
     if (p >= P) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[p * CO + co0 + j] = from_f32<TO>(fmaxf(acc[r][j] + bias[co0 + j], 0.f));
+    for (int j = 0; j < 4; ++j) out[p * CO + co0 + j] = from_f32<TO>(epi(acc[r][j], co0 + j));
   }
 }
 
-// conv1: x1 = relu(patches [441, 256] · w1 [256, CO] + b1), stored as TO.
-template <int CO, int NT, typename TI, typename TO>
-__device__ __forceinline__ void conv1_stage(const TI* __restrict__ patches, const TI* __restrict__ w1,
-                                            const float* __restrict__ b1, TO* __restrict__ x1) {
+// conv1: x1 = epi(patches [441, 256] · w1 [256, CO]), stored as TO.
+template <int CO, int NT, typename TI, typename Epi, typename TO>
+__device__ __forceinline__ void conv1_stage_epi(const TI* __restrict__ patches, const TI* __restrict__ w1,
+                                                Epi epi, TO* __restrict__ x1) {
   static_assert(CO % 4 == 0 && NT % (CO / 4) == 0, "threads must tile the output channels");
   constexpr int TCO = CO / 4, TPY = NT / TCO, R = (kP1 + TPY - 1) / TPY;
   const int co0 = (threadIdx.x % TCO) * 4, py = threadIdx.x / TCO;
@@ -131,15 +151,22 @@ __device__ __forceinline__ void conv1_stage(const TI* __restrict__ patches, cons
     src[r] = p < kP1 ? patches + p * kKK1 : nullptr;
   }
   tap_fma<R, kKK1, CO>(acc, src, w1 + co0);
-  store_relu<R, kP1, CO, TPY>(acc, b1, py, co0, x1);
+  store_epi<R, kP1, CO, TPY>(acc, epi, py, co0, x1);
+}
+
+// conv1: x1 = relu(patches [441, 256] · w1 [256, CO] + b1), stored as TO.
+template <int CO, int NT, typename TI, typename TO>
+__device__ __forceinline__ void conv1_stage(const TI* __restrict__ patches, const TI* __restrict__ w1,
+                                            const float* __restrict__ b1, TO* __restrict__ x1) {
+  conv1_stage_epi<CO, NT>(patches, w1, BiasRelu{b1}, x1);
 }
 
 // A SAME conv over the HIN×HIN×CI activations x (shared memory, 16-byte
-// aligned rows): out = relu(im2col(x) [HOUT², KS²·CI] · w [KS²·CI, CO] + b).
+// aligned rows): out = epi(im2col(x) [HOUT², KS²·CI] · w [KS²·CI, CO]).
 template <int KS, int STRIDE, int PAD, int HIN, int HOUT, int CI, int CO, int NT, typename TA,
-          typename TW, typename TO>
-__device__ __forceinline__ void conv_stage(const TA* __restrict__ x, const TW* __restrict__ w,
-                                           const float* __restrict__ bias, TO* __restrict__ out) {
+          typename TW, typename Epi, typename TO>
+__device__ __forceinline__ void conv_stage(const TA* __restrict__ x, const TW* __restrict__ w, Epi epi,
+                                           TO* __restrict__ out) {
   static_assert(CO % 4 == 0 && NT % (CO / 4) == 0, "threads must tile the output channels");
   constexpr int P = HOUT * HOUT, TCO = CO / 4, TPY = NT / TCO, R = (P + TPY - 1) / TPY;
   const int co0 = (threadIdx.x % TCO) * 4, py = threadIdx.x / TCO;
@@ -159,19 +186,25 @@ __device__ __forceinline__ void conv_stage(const TA* __restrict__ x, const TW* _
       tap_fma<R, CI, CO>(acc, src, w + (i * KS + j) * CI * CO + co0);
     }
   }
-  store_relu<R, P, CO, TPY>(acc, bias, py, co0, out);
+  store_epi<R, P, CO, TPY>(acc, epi, py, co0, out);
 }
 
-// conv2 k4 s2 SAME, 21 → 11 (pads 1 low, 2 high).
+// conv2 k4 s2 SAME, 21 → 11 (pads 1 low, 2 high), out = epi(product).
+template <int CI, int CO, int NT, typename TA, typename TW, typename Epi, typename TO>
+__device__ __forceinline__ void conv2_stage_epi(const TA* x1, const TW* w2, Epi epi, TO* out) {
+  conv_stage<4, 2, 1, kH1, kH2, CI, CO, NT>(x1, w2, epi, out);
+}
+
+// conv2 k4 s2 SAME, 21 → 11, out = relu(product + b2).
 template <int CI, int CO, int NT, typename TA, typename TW, typename TO>
 __device__ __forceinline__ void conv2_stage(const TA* x1, const TW* w2, const float* b2, TO* out) {
-  conv_stage<4, 2, 1, kH1, kH2, CI, CO, NT>(x1, w2, b2, out);
+  conv2_stage_epi<CI, CO, NT>(x1, w2, BiasRelu{b2}, out);
 }
 
 // conv3 k3 s1 SAME, 11 → 11 (pads 1, 1).
 template <int CI, int CO, int NT, typename TA, typename TW, typename TO>
 __device__ __forceinline__ void conv3_stage(const TA* x2, const TW* w3, const float* b3, TO* out) {
-  conv_stage<3, 1, 1, kH2, kH2, CI, CO, NT>(x2, w3, b3, out);
+  conv_stage<3, 1, 1, kH2, kH2, CI, CO, NT>(x2, w3, BiasRelu{b3}, out);
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel first; the

@@ -1,37 +1,56 @@
-"""Virtual-batch-norm small DQN (ModelVirtualBN), split route.
+"""Virtual-batch-norm small DQN (ModelVirtualBN): the ES path's policy.
 
 The counterpart of the JAX package's models/batchnorm.py ``VirtualBNDQN``
-with ``affine='bias'`` (the GPU stack's ModelVirtualBN,
-gpu neuroevolution/models/batchnorm.py:52-123): bias-free
-conv16(8,4) → conv32(4,2) → fc256 → out, and after each of the first three
-layers a per-member normalization x̂ = (x − μ)·inv_σ + b, where μ and
-inv_σ = 1/√(var + 1e-3) are the moments of the member's own forward of the
-reference batch over batch and spatial axes, and b is a learned bias.
+(the GPU stack's ModelVirtualBN, gpu neuroevolution/models/batchnorm.py:
+52-123): bias-free conv16(8,4) → conv32(4,2) → fc256 → out, and after each
+of the first three layers a per-member normalization x̂ = (x − μ)·inv_σ,
+where μ and inv_σ = 1/√(var + 1e-3) are the moments of the member's own
+forward of the reference batch over batch and spatial axes, followed by
+the affine: ``affine='bias'`` (the GPU stack) adds a learned bias b,
+``affine='full'`` (the CPU stack's γ/β) computes x̂·(1 + g) + b, with the
+learned g stored as γ − 1 so that a zero init is the identity.
 
-The population forward (``batch_scores_parts``) runs the convs as batched
-products over im2col patches and the fc layer through ``pop_matvec``
-(kernel K1 on a CUDA tensor). ``compute_dtype="bfloat16"`` runs the conv
-and fc products on bfloat16 weights and activations with float32 sums;
-θ, the moments and the normalization stay float32. Where the JAX package
-rounds a product's output to the compute dtype (the reference-batch pass),
-the port rounds it too.
+Population forward routes (``forward_impl``):
 
-Not ported yet: the 'full' (γ/β) affine, other nonlinearities, BNDQN, and
-the fused, fused1 and folded routes.
+* ``'split'`` (``batch_scores_parts``): the convs as batched products over
+  im2col patches, the fc through ``pop_matvec`` (kernel K1 on a CUDA
+  tensor), the normalization as separate elementwise passes;
+* ``'folded'`` (``fold_batch_parts`` + ``batch_scores_folded``): the split
+  route with each normalization folded into the layer's weights and a
+  bias, once per rollout (plain torch, the fc on K1);
+* ``'fused1'``: kernel K4 (``ops.fused_dqn.vbn_dqn_fused1_scores``), the
+  whole net per member, on ``fuse_prepare(style='one')``'s layout;
+* ``'fused'``: kernel K6 (``ops.fused_dqn.vbn_dqn_fused_scores``), the same
+  net with x2 rounded to bf16 before the fc, on ``style='two'``'s layout;
+* ``'auto'``: ``'split'``, on the card too, as in the JAX package
+  (batchnorm.py:291-302).
+
+``compute_dtype="bfloat16"`` runs the split and folded routes' products on
+bfloat16 weights and activations with float32 sums; θ, the moments and the
+normalization stay float32. Where the JAX package rounds a product's
+output to the compute dtype (the reference-batch pass), the port rounds it
+too. The fused routes take bfloat16 weights whatever ``compute_dtype``
+says, as in the JAX package.
+
+Not ported yet: other nonlinearities, input sizes other than 84×84×4,
+``prepare_batch_params_chunked`` and BNDQN.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar, NamedTuple, Sequence, Tuple
+from typing import ClassVar, Dict, NamedTuple, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from ..ops import fused_dqn as fk
 from ..ops.flat import ParamSpec
 from .core import Model, batch_conv2d, extract_patches, pop_matvec
 
 VBN_EPS = 1e-3  # batchnorm.py:76; policies.py:322 epsilon=1e-3
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_FORWARD_IMPLS = ("auto", "split", "folded", "fused", "fused1")
 
 
 def _conv_out_hw(hw: int, k: int, s: int) -> int:
@@ -52,7 +71,9 @@ def _moments(h: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
 @dataclasses.dataclass(frozen=True)
 class VirtualBNDQN(Model):
     num_actions: int = 0
+    affine: str = "bias"  # 'bias' (GPU ModelVirtualBN) | 'full' (CPU ESAtariPolicy γ/β)
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+    forward_impl: str = "auto"  # see the module docstring
 
     IN_HW: ClassVar[int] = 84  # input frames [84, 84, 4]
     IN_CH: ClassVar[int] = 4
@@ -66,6 +87,12 @@ class VirtualBNDQN(Model):
     def __post_init__(self):
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
+        if self.affine not in ("bias", "full"):
+            raise ValueError(f"affine must be 'bias' or 'full', not {self.affine!r}")
+        if self.forward_impl not in _FORWARD_IMPLS:
+            raise ValueError(f"forward_impl must be one of {_FORWARD_IMPLS}, not {self.forward_impl!r}")
+        if self._use_fused() and not 0 < self.num_actions <= fk.NOUT:
+            raise ValueError(f"forward_impl={self.forward_impl!r} takes 1 to {fk.NOUT} actions, not {self.num_actions}")
         super().__post_init__()
 
     @property
@@ -82,9 +109,13 @@ class VirtualBNDQN(Model):
         for name, out_ch, k, s in self.LAYERS:
             specs.append(ParamSpec(f"{name}/w", (k, k, ch, out_ch), "normc", 1.0))
             specs.append(ParamSpec(f"{name}/bn_b", (out_ch,), "zeros"))
+            if self.affine == "full":
+                specs.append(ParamSpec(f"{name}/bn_g", (out_ch,), "zeros"))  # γ − 1
             hw, ch = _conv_out_hw(hw, k, s), out_ch
         specs.append(ParamSpec("fc/w", (hw * hw * ch, self.FC), "normc", 1.0))
         specs.append(ParamSpec("fc/bn_b", (self.FC,), "zeros"))
+        if self.affine == "full":
+            specs.append(ParamSpec("fc/bn_g", (self.FC,), "zeros"))
         specs += [
             ParamSpec("out/w", (self.FC, self.num_actions), "normc", self.OUT_STD),
             ParamSpec("out/b", (self.num_actions,), "zeros"),
@@ -96,20 +127,23 @@ class VirtualBNDQN(Model):
     def prepare_parts(self, parts):
         """Cast the conv and fc weights (the bytes each step reads) to the
         compute dtype as contiguous copies, once per rollout; K1 reads fc/w
-        as one contiguous ``[B, K, N]`` block. Biases and the out layer stay
-        float32 views."""
+        as one contiguous ``[B, K, N]`` block. Biases, gains and the out
+        layer stay float32 views."""
         dt = self.dtype
         return {
             k: v.to(dt).contiguous() if k.endswith("/w") and not k.startswith("out") else v
             for k, v in parts.items()
         }
 
-    @staticmethod
-    def _normalize(parts, name, h, mean, inv_std):
-        """x̂ = (h − μ)·inv_σ + b with μ, inv_σ, b ``[B, C]`` broadcast over
-        any axes between the member axis and the channel axis."""
+    def _normalize(self, parts, name, h, mean, inv_std):
+        """x̂ = (h − μ)·inv_σ, then + b ('bias') or ·(1 + g) + b ('full'),
+        with μ, inv_σ, g, b ``[B, C]`` broadcast over any axes between the
+        member axis and the channel axis."""
         shape = (h.shape[0],) + (1,) * (h.ndim - 2) + (h.shape[-1],)
-        return (h - mean.reshape(shape)) * inv_std.reshape(shape) + parts[f"{name}/bn_b"].reshape(shape)
+        x = (h - mean.reshape(shape)) * inv_std.reshape(shape)
+        if self.affine == "full":
+            x = x * (1.0 + parts[f"{name}/bn_g"].reshape(shape))
+        return x + parts[f"{name}/bn_b"].reshape(shape)
 
     # --------------------------------------------------------------- ref stats
 
@@ -171,5 +205,128 @@ class VirtualBNDQN(Model):
         x = torch.relu(self._normalize(parts, "fc", h, ctx.mean[i], ctx.inv_std[i]))
         return torch.einsum("bk,bkn->bn", x, parts["out/w"].float()) + parts["out/b"]
 
+    # ------------------------------------------------------------- routes
+
+    def _use_folded(self) -> bool:
+        return self.forward_impl == "folded"
+
+    def _fused_eligible(self) -> bool:
+        """K4 and K6 are written for the reference topology, 84×84×4 →
+        conv16/8s4 → conv32/4s2 → fc256 (batchnorm.py:283-289)."""
+        return (
+            (self.IN_HW, self.IN_CH, self.FC) == (84, 4, fk.FC)
+            and self.LAYERS == (("conv1", fk.C1, 8, 4), ("conv2", fk.C2, 4, 2))
+        )
+
+    def _use_fused(self):
+        """The fused route, ``'fused'`` (K6) or ``'fused1'`` (K4), or False.
+        ``'auto'`` stays on the split route (batchnorm.py:291-302)."""
+        if self.forward_impl in ("fused", "fused1"):
+            if not self._fused_eligible():
+                raise ValueError("the fused VBN-DQN kernels need the reference topology")
+            return self.forward_impl
+        return False
+
+    def _fold(self, parts, stats: VBNStats, name: str, i: int):
+        """The normalization of layer ``i`` as a per-channel scale and shift
+        ``[B, C]``: a = inv_σ·(1 + g), c = b − μ·a, so that x̂ = h·a + c."""
+        a = stats.inv_std[i]
+        if self.affine == "full":
+            a = a * (1.0 + parts[f"{name}/bn_g"])
+        return a, parts[f"{name}/bn_b"] - stats.mean[i] * a
+
+    def fold_batch_parts(self, parts, stats: VBNStats) -> dict:
+        """The 'folded' route's weights (batchnorm.py:222-251) from parts
+        ``[B, ...]``: conv(x, W)·a + c = conv(x, W·a) + c, so each layer's
+        scale goes into its weight columns (a product in the compute dtype)
+        and its shift into a bias."""
+        dt = self.dtype
+        folded = {}
+        for i, (name, _, _, _) in enumerate(self.LAYERS):
+            a, c = self._fold(parts, stats, name, i)
+            folded[f"{name}/w"] = parts[f"{name}/w"].to(dt) * a[:, None, None, None, :].to(dt)
+            folded[f"{name}/b"] = c
+        a3, c3 = self._fold(parts, stats, "fc", len(self.LAYERS))
+        folded["fc/w"] = parts["fc/w"].to(dt) * a3[:, None, :].to(dt)
+        folded["fc/b"] = c3
+        folded["out/w"], folded["out/b"] = parts["out/w"], parts["out/b"]
+        return folded
+
+    def batch_scores_folded(self, fparts, obs: torch.Tensor) -> torch.Tensor:
+        """Scores ``[B, A]`` over folded weights: the split route's products
+        with a bias and relu after each (batchnorm.py:253-268)."""
+        dt = self.dtype
+        B = obs.shape[0]
+        x = obs.to(dt)
+        for name, _, _, s in self.LAYERS:
+            h = batch_conv2d(fparts[f"{name}/w"], x, stride=s)
+            x = torch.relu(h + fparts[f"{name}/b"][:, None, None, :]).to(dt)
+        x = torch.relu(pop_matvec(x.reshape(B, -1), fparts["fc/w"]) + fparts["fc/b"])
+        return torch.einsum("bk,bkn->bn", x, fparts["out/w"].float()) + fparts["out/b"]
+
+    def fuse_prepare(self, parts, stats: VBNStats, style: str = "two") -> Dict[str, torch.Tensor]:
+        """K4's (``style='one'``) or K6's (``'two'``) layout from parts
+        ``[B, ...]`` (batchnorm.py:304-349): the conv weights as bf16
+        ``[B, k·k·cin, cout]`` in (i, j, c) rows; each normalization folded
+        into f32 ``a``, ``c`` ``[B, 1, C]``; the out layer f32 with its lanes
+        padded to 64 by zero weights and a −1e9 bias. The fc weights are
+        bf16, channel-major ``wf_cm[b, c, p, :] = fc/w[b, p·32 + c, :]``
+        (style 'one') or row-major ``wf`` ``[B, 3872, 256]`` (style 'two')."""
+        if style not in ("one", "two"):
+            raise ValueError(f"style must be 'one' or 'two', not {style!r}")
+        B = parts["conv1/w"].shape[0]
+        bf, f32 = torch.bfloat16, torch.float32
+        ops = {}
+        for i, (name, c_out, _, _) in enumerate(self.LAYERS + (("fc", self.FC, 0, 0),)):
+            a, c = self._fold(parts, stats, name, i)
+            ops[f"a{i + 1}"] = a[:, None, :].to(f32).contiguous()
+            ops[f"c{i + 1}"] = c[:, None, :].to(f32).contiguous()
+            if name != "fc":
+                ops[f"w{i + 1}"] = parts[f"{name}/w"].reshape(B, -1, c_out).to(bf).contiguous()
+        if style == "one":
+            wf = torch.empty((B, fk.C2, fk.P2, fk.FC), dtype=bf, device=parts["fc/w"].device)
+            wf.copy_(parts["fc/w"].reshape(B, fk.P2, fk.C2, fk.FC).transpose(1, 2))
+            ops["wf_cm"] = wf
+        else:
+            ops["wf"] = parts["fc/w"].to(bf).contiguous()
+        pad = fk.NOUT - self.num_actions
+        ops["wo"] = F.pad(parts["out/w"].to(f32), (0, pad))
+        ops["bo"] = F.pad(parts["out/b"].to(f32), (0, pad), value=-1e9)[:, None, :]
+        return ops
+
+    def batch_scores_fused(self, fused_ops: Dict[str, torch.Tensor], obs: torch.Tensor) -> torch.Tensor:
+        """Padded scores ``[B, 64]`` from K4 (a ``wf_cm`` entry) or K6; conv1's
+        im2col (bf16) runs outside the kernel (batchnorm.py:351-364)."""
+        B = obs.shape[0]
+        patches1 = extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, fk.P1, fk.KK1)
+        ops = dict(fused_ops, patches1=patches1)
+        if "wf_cm" in fused_ops:
+            return fk.vbn_dqn_fused1_scores(ops)
+        return fk.vbn_dqn_fused_scores(ops)
+
+    def prepare_batch_params(self, params):
+        """``(thetas [B, D], stats)`` → prepared ``(parts, stats)``, once per
+        rollout slot group (batchnorm.py:377-394): the split route's parts,
+        or the folded weights under ``"__folded__"``, or the K4/K6 layout
+        under ``"__fused__"``. Prepared params pass through unchanged."""
+        thetas, ctx = params
+        if isinstance(thetas, dict):
+            return params
+        fused = self._use_fused()
+        if not (fused or self._use_folded()):
+            return self.prepare_parts(self.unflatten(thetas)), ctx
+        if ctx is None:
+            raise ValueError("VirtualBNDQN needs the members' reference-batch stats")
+        # both layouts below are fresh tensors, cast as they are built: no
+        # prepare_parts copies of θ
+        parts = self.unflatten(thetas)
+        if fused:
+            return {"__fused__": self.fuse_prepare(parts, ctx, "one" if fused == "fused1" else "two")}, ctx
+        return {"__folded__": self.fold_batch_parts(parts, ctx)}, ctx
+
     def batch_act_parts(self, parts, obs, ctx):
+        if "__fused__" in parts:
+            return torch.argmax(self.batch_scores_fused(parts["__fused__"], obs), dim=-1)
+        if "__folded__" in parts:
+            return torch.argmax(self.batch_scores_folded(parts["__folded__"], obs), dim=-1)
         return torch.argmax(self.batch_scores_parts(parts, obs, ctx), dim=-1)

@@ -116,6 +116,9 @@ def load() -> ctypes.CDLL:
     lib.nevo_large_dqn_fused.restype = i32
     lib.nevo_dqn_conv_chain.argtypes = [vp] * 8 + [i32, i32, i32, i32, i32, vp]
     lib.nevo_dqn_conv_chain.restype = i32
+    for name in ("nevo_vbn_dqn_fused1", "nevo_vbn_dqn_fused"):
+        getattr(lib, name).argtypes = [vp] * 13 + [i32, vp]
+        getattr(lib, name).restype = i32
     lib.nevo_cuda_error_string.argtypes = [i32]
     lib.nevo_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -17,10 +17,16 @@ package); ``"rs"`` runs random search on a GA file.
 * ``env_kwargs`` — engine knobs: ``batch_size`` (slots, default 256),
   ``num_threads``, ``pipeline_groups``;
 * ``noise_size`` — noise-table length (default 250M, the reference's);
-* ``theta_hbm_budget`` — bytes allowed for one round's θ batch.
+* ``theta_hbm_budget`` — bytes allowed for one round's θ batch;
+* ``num_eval_episodes`` — ES only: noiseless episodes of θ per generation
+  (default 8).
 
-Not ported yet: the CPU-stack schema, NS-ES, device envs, population import,
-and the ``eval_batch`` override (the GA device arm's rollout chunk).
+Not ported yet, and rejected with ``NotImplementedError`` rather than
+dropped: the experiment keys ``load_population`` (GA population import),
+``load_from`` (GA-seeded ES) and ``mirror_crn`` (mirrored common random
+numbers), and the ``mirror_crn`` override. Rejected as unsupported: the
+``eval_batch`` and ``grad_chunk`` overrides (the device arms' chunks). Also
+not ported: the CPU-stack schema, NS-ES and device envs.
 """
 
 from __future__ import annotations
@@ -37,7 +43,10 @@ from ..ops.noise import NoiseTable
 
 _OVERRIDES = {
     "game", "population_size", "episode_cutoff_mode", "env_kwargs", "noise_size", "theta_hbm_budget",
+    "num_eval_episodes",
 }
+# keys the JAX package acts on (its utils/config.py:222, 233-245, 260-261)
+_UNPORTED_KEYS = ("load_population", "load_from", "mirror_crn")
 
 
 def load_experiment(
@@ -50,17 +59,25 @@ def load_experiment(
     """Experiment dict → ready ES, GA or RS trainer on ``device`` (default
     cuda)."""
     overrides = dict(overrides or {})
+    if "mirror_crn" in overrides:
+        raise NotImplementedError("the 'mirror_crn' override is not ported yet")
     unknown = set(overrides) - _OVERRIDES
     if unknown:
         raise ValueError(f"unsupported overrides {sorted(unknown)}; supported: {sorted(_OVERRIDES)}")
+    for key in _UNPORTED_KEYS:
+        if key in exp:
+            raise NotImplementedError(f"experiment key {key!r} is not ported yet")
     if "game" not in exp:
         raise NotImplementedError("only the GPU-stack schema (a 'game' field) is ported yet")
     algo = algo or ("ga" if "selection_threshold" in exp else "es")
     if algo not in ("es", "ga", "rs"):
         raise NotImplementedError(f"algo {algo!r} is not ported yet; ported: es, ga, rs")
+    if "num_eval_episodes" in overrides and algo != "es":
+        raise ValueError("the 'num_eval_episodes' override applies to ES only")
     device = resolve_device(device)
     exp = {**exp, **{k: overrides[k] for k in ("game", "population_size", "episode_cutoff_mode") if k in overrides}}
     budget = {k: overrides[k] for k in ("theta_hbm_budget",) if k in overrides}
+    evals = {k: int(overrides[k]) for k in ("num_eval_episodes",) if k in overrides}
     # 256 engine slots unless env_kwargs says otherwise (the JAX package's
     # Atari default, config.py _atari_defaults)
     env = AtariEnv(exp["game"], **{"batch_size": 256, **overrides.get("env_kwargs", {})})
@@ -78,6 +95,7 @@ def load_experiment(
                 return_proc_mode=exp.get("return_proc_mode", "centered_rank"),
                 episode_cutoff_mode=exp.get("episode_cutoff_mode", "env_default"),
                 **budget,
+                **evals,
             )
             return ESTrainer(
                 env,

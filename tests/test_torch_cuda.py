@@ -191,6 +191,89 @@ def test_fused_wrappers_reject_misaligned_inputs(cuda_device):
         fk.large_dqn_fused_scores(dict(ops, wf=buf[1:].view(ops["wf"].shape)))
 
 
+VBN_KERNELS = {"fused1": (fk.vbn_dqn_fused1_scores, fk.vbn_dqn_fused1_scores_plain),
+               "fused": (fk.vbn_dqn_fused_scores, fk.vbn_dqn_fused_scores_plain)}
+
+
+def _vbn_ops(impl, B, num_actions, seed, device):
+    """K4's ('fused1') or K6's ('fused') operands: B members around an init
+    θ at the ES's σ, with the stats of 16 random reference frames."""
+    model = VirtualBNDQN(num_actions=num_actions, forward_impl=impl)
+    g = torch.Generator().manual_seed(seed)
+    base = model.init_theta(g)
+    th = (base[None] + 0.02 * torch.randn(B, model.num_params, generator=g)).to(device)
+    stats = model.batch_ref_stats(th, torch.rand(16, 84, 84, 4, generator=g).to(device))
+    parts, _ = model.prepare_batch_params((th, stats))
+    obs = _frames(B, seed, device)
+    return dict(parts["__fused__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+
+
+@pytest.mark.parametrize("num_actions", [4, 18])
+@pytest.mark.parametrize("B", [1, 5, 128])
+@pytest.mark.parametrize("impl", ["fused1", "fused"])
+def test_vbn_fused_matches_plain(cuda_device, impl, B, num_actions):
+    """K4 and K6 against their plain versions on the card: within
+    1e-3·max|score| (the bf16 roundings of x1, and of x2 in K6, kept; sums
+    in f32 in other orders; a dropped or swapped rounding moves the scores
+    by 3.7e-3·max or more, TestCardTolerance in test_torch_vbn_fused.py),
+    equal argmax away from near ties, padded lanes at −1e9."""
+    fn, plain = VBN_KERNELS[impl]
+    ops = _vbn_ops(impl, B, num_actions, B + num_actions, cuda_device)
+    before = fn.launches
+    y = fn(ops)
+    ref = plain(ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert y.shape == (B, 64) and y.dtype == torch.float32
+    tol = 1e-3 * float(ref[:, :num_actions].abs().max())
+    err = float((y[:, :num_actions] - ref[:, :num_actions]).abs().max())
+    print(f"{fn.__name__} B={B} A={num_actions}: max abs err {err} (tol {tol})")  # shown with pytest -s
+    torch.testing.assert_close(y[:, :num_actions], ref[:, :num_actions], rtol=0, atol=tol)
+    assert bool((y[:, num_actions:] < -1e8).all())
+    top2 = ref[:, :num_actions].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    assert torch.equal(y.argmax(-1)[clear], ref.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("impl", ["fused1", "fused"])
+def test_vbn_fused_wrappers_reject(cuda_device, impl):
+    """A misaligned, mistyped or misshapen operand raises before a launch."""
+    fn, _ = VBN_KERNELS[impl]
+    ops = _vbn_ops(impl, 2, 4, 0, cuda_device)
+    wkey = "wf_cm" if impl == "fused1" else "wf"
+    buf = torch.zeros(ops[wkey].numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    before = fn.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fn(dict(ops, **{wkey: buf[1:].view(ops[wkey].shape)}))
+    with pytest.raises(TypeError, match="w1"):
+        fn(dict(ops, w1=ops["w1"].float()))
+    with pytest.raises(ValueError, match="shape"):
+        fn(dict(ops, a3=ops["a3"][:, :, :128].contiguous()))
+    with pytest.raises(ValueError, match="on cpu"):
+        fn(dict(ops, bo=ops["bo"].cpu()))
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("impl", ["fused1", "fused"])
+def test_es_generation_fused_on_card(cuda_device, monkeypatch, impl):
+    """A small ES generation at full width with forward_impl='fused1' (K4)
+    or 'fused' (K6): the kernel launches, the 8 eval episodes run, θ' is
+    finite."""
+    monkeypatch.setattr(tabular, "dump_tabular", lambda: tabular._logger._kvs.clear())
+    env = AtariEnv("toy", batch_size=8, num_threads=2)
+    model = VirtualBNDQN(num_actions=env.num_actions, forward_impl=impl)
+    tr = es.ESTrainer(env, model, es.ESConfig(population_size=16, episode_cutoff_mode=15),
+                      optimizer=optim.Adam(0.01), noise_table=NoiseTable.from_seed(count=2_000_000),
+                      device=cuda_device)
+    fn, _ = VBN_KERNELS[impl]
+    before = fn.launches
+    stats = tr.train_step()
+    tr.close()
+    assert fn.launches > before
+    assert stats.eval_returns.size == 8 and np.isfinite(stats.eval_returns).all()
+    assert bool(torch.isfinite(tr.theta).all())
+
+
 def test_ga_generation_on_card(cuda_device, monkeypatch):
     """Two small GA generations of the LargeDQN at full width on the card:
     the automatic route runs K3, and θ stays finite."""

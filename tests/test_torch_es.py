@@ -2,9 +2,10 @@
 ESTrainer on the ToyCatch engine, on the CPU.
 
 JAX's key streams cannot be reproduced in torch, so the port is handed what
-the JAX trainer drew: the initial θ, the reference batch, and each round's
-noise offsets and rollout seed (from which both packages draw the noop
-counts and the engine's episode seeds in the same order)."""
+the JAX trainer drew: the initial θ, the reference batch, each round's
+noise offsets and rollout seed, and the eval episodes' rollout seed (from
+which both packages draw the noop counts and the engine's episode seeds in
+the same order)."""
 
 import jax
 import jax.numpy as jnp
@@ -40,40 +41,60 @@ def _jax_seed(key) -> int:
 
 
 class _InjectedTrainer(tes.ESTrainer):
-    """The port's trainer, drawing each round from a given list."""
+    """The port's trainer, drawing each round from a given list and the
+    eval episodes' seed as given."""
 
-    def __init__(self, *a, rounds, **kw):
+    def __init__(self, *a, rounds, eval_seed=None, **kw):
         super().__init__(*a, **kw)
         self._rounds = list(rounds)
+        self._eval_seed = eval_seed
 
     def _draw_round(self, npairs):
         idxs, seed = self._rounds.pop(0)
         assert idxs.shape == (npairs,)
         return torch.from_numpy(idxs), seed
 
+    def _draw_eval_seed(self):
+        return self._eval_seed
+
 
 @pytest.fixture
 def quiet_loggers(monkeypatch):
-    monkeypatch.setattr(jtab, "dump_tabular", lambda: jtab._logger._kvs.clear())
-    monkeypatch.setattr(ttab, "dump_tabular", lambda: ttab._logger._kvs.clear())
+    """Both packages' tabular rows, kept instead of printed."""
+    rows = {"jax": [], "torch": []}
+
+    def keep(mod, name):
+        def dump():
+            rows[name].append(dict(mod._logger._kvs))
+            mod._logger._kvs.clear()
+
+        return dump
+
+    monkeypatch.setattr(jtab, "dump_tabular", keep(jtab, "jax"))
+    monkeypatch.setattr(ttab, "dump_tabular", keep(ttab, "torch"))
+    return rows
+
+
+EVAL_METRICS = ("EvalEpRewMean", "EvalEpRewMedian", "EvalEpRewStd", "EvalEpLenMean", "EvalPopRank", "EvalEpCount")
 
 
 def test_one_generation_matches_jax(quiet_loggers):
-    """Returns and lengths equal; g within 1e-5 of max|g|; θ' within 1e-6
-    except near Adam's input G = 0 (see below), where a rounding-level
-    change of g moves the first step."""
+    """Returns and lengths equal; the 8 noiseless eval episodes' returns,
+    lengths and every Eval* metric equal; g within 1e-5 of max|g|; θ'
+    within 1e-6 except near Adam's input G = 0 (see below), where a
+    rounding-level change of g moves the first step."""
     # ---------------------------------------------------------- JAX side
     jenv = JaxAtari("toy", batch_size=SLOTS, num_threads=2, pipeline_groups=2)
     jm = JaxVBN(num_actions=jenv.num_actions)
-    jcfg = jes.ESConfig(population_size=POP, episode_cutoff_mode=CUTOFF, num_eval_episodes=0)
+    jcfg = jes.ESConfig(population_size=POP, episode_cutoff_mode=CUTOFF, num_eval_episodes=8)
     jtr = jes.ESTrainer(jenv, jm, jcfg, optimizer=jopt.Adam(stepsize=0.01),
                         noise_table=JaxNoise.from_seed(count=COUNT), seed=SEED)
     theta0 = np.asarray(jtr.state.theta)
     key = jtr.state.key
     jstats = jtr.train_step()
     jenv.close()
-    # the rounds the JAX trainer drew (es.py train_step / _host_round)
-    key, _ = jax.random.split(key)
+    # the eval key and the rounds the JAX trainer drew (es.py train_step / _host_round)
+    key, keval = jax.random.split(key)
     npairs, rounds = SLOTS // 2, []
     for _ in range(POP // SLOTS):
         key, kround = jax.random.split(key)
@@ -86,7 +107,7 @@ def test_one_generation_matches_jax(quiet_loggers):
     ttr = _InjectedTrainer(
         tenv, tm, tes.ESConfig(population_size=POP, episode_cutoff_mode=CUTOFF),
         optimizer=topt.Adam(stepsize=0.01), noise_table=TorchNoise.from_seed(count=COUNT, device="cpu"),
-        seed=SEED, device="cpu", rounds=rounds,
+        seed=SEED, device="cpu", rounds=rounds, eval_seed=_jax_seed(keval),
     )
     ttr.theta = weights.from_jax(theta0, device="cpu")
     ttr.ref_batch = weights.from_jax(np.asarray(jtr.ref_batch), device="cpu")
@@ -96,6 +117,13 @@ def test_one_generation_matches_jax(quiet_loggers):
     np.testing.assert_array_equal(tstats.lengths, jstats.lengths)
     np.testing.assert_array_equal(tstats.returns, jstats.returns)
     assert ttr.iteration == 1 and ttr.episodes_so_far == POP
+    assert tstats.eval_returns.shape == (8,)
+    np.testing.assert_array_equal(tstats.eval_lengths, np.asarray(jstats.eval_lengths))
+    np.testing.assert_array_equal(tstats.eval_returns, np.asarray(jstats.eval_returns))
+    (jrow,), (trow,) = quiet_loggers["jax"], quiet_loggers["torch"]
+    for name in EVAL_METRICS:
+        assert float(trow[name]) == float(jrow[name]), name
+    assert trow["EvalEpCount"] == 8
 
     # the gradient, both packages' way, from the same returns
     idxs = np.concatenate([r[0] for r in rounds])
@@ -174,3 +202,20 @@ def test_cutoff_dsl_matches_jax():
     c = tes.parse_cutoff("adaptive:100,0.5,2,150", 0)
     lengths = np.array([100, 100, 3, 100])
     assert tes.update_cutoff(c, lengths).tslimit == jes.update_cutoff(jes.parse_cutoff("adaptive:100,0.5,2,150", 0), lengths).tslimit == 150
+
+
+@pytest.mark.parametrize("impl", ["fused1", "fused"])
+def test_generation_through_a_fused_route(quiet_loggers, impl):
+    """A tiny generation at full width with forward_impl='fused1' (K4) or
+    'fused' (K6), on the CPU's plain versions: finite returns and θ', and
+    eight eval episodes through the same route."""
+    env = TorchAtari("toy", batch_size=8, num_threads=2)
+    tr = tes.ESTrainer(env, TorchVBN(num_actions=env.num_actions, forward_impl=impl),
+                       tes.ESConfig(population_size=8, episode_cutoff_mode=4),
+                       noise_table=TorchNoise.from_seed(count=COUNT, device="cpu"), device="cpu")
+    stats = tr.train_step()
+    tr.close()
+    assert stats.returns.shape == (4, 2) and np.isfinite(stats.returns).all()
+    assert np.isfinite(stats.eval_returns).all() and bool(torch.isfinite(tr.theta).all())
+    (row,) = quiet_loggers["torch"]
+    assert row["EvalEpCount"] == 8 and np.isfinite(row["EvalPopRank"])

@@ -44,6 +44,12 @@ def _port_files():
 def test_every_module_is_listed():
     assert "deep_neuroevolution_torch.ops.population_linear" in PORT_MODULES
     assert "deep_neuroevolution_torch.algos.es" in PORT_MODULES
+    # slice 3: the VBN-DQN's routes and the K4/K6 wrappers, and their CUDA source
+    for name in ("models.batchnorm", "ops.fused_dqn"):
+        assert f"deep_neuroevolution_torch.{name}" in PORT_MODULES
+    from deep_neuroevolution_torch.ops import _cuda_build
+
+    assert "vbn_dqn_fused.cu" in [p.name for p in _cuda_build.sources()]
 
 
 def test_no_jax_import_and_no_cpp_extension_in_the_port():
@@ -144,3 +150,25 @@ def test_config_rejects_what_is_not_ported():
         config.load_experiment(exp, overrides={"game": "toy", "eval_batch": 64}, device="cpu", algo="ga")
     with pytest.raises(NotImplementedError, match="nses"):
         config.load_experiment(exp, overrides={"game": "toy"}, device="cpu", algo="nses")
+
+    # keys the JAX package acts on (its utils/config.py:222, 233-245, 260-261)
+    # stop the loader, naming the key, instead of being dropped without a word
+    small = {"population_size": 4, "episode_cutoff_mode": 5, "noise_size": 3_000_000, "env_kwargs": {"batch_size": 4}}
+    ga_toy, es_toy = (json.loads((ROOT / "configurations" / f).read_text())
+                      for f in ("ga_toy_config.json", "es_toy_config.json"))
+    for base, key, value in ((ga_toy, "load_population", "/nonexistent/population.pkl"), (ga_toy, "mirror_crn", True),
+                             (es_toy, "mirror_crn", True), (es_toy, "load_from", "/nonexistent/seeds.pkl")):
+        with pytest.raises(NotImplementedError, match=f"{key}.*not ported yet"):
+            config.load_experiment({**base, key: value}, overrides=small, device="cpu")
+    with pytest.raises(NotImplementedError, match="mirror_crn.*not ported yet"):
+        config.load_experiment(es_toy, overrides={**small, "mirror_crn": True}, device="cpu")
+    for chunk in ("eval_batch", "grad_chunk"):  # the device arms' chunks
+        with pytest.raises(ValueError, match="unsupported overrides"):
+            config.load_experiment(es_toy, overrides={**small, chunk: 64}, device="cpu")
+    # num_eval_episodes: accepted for ES, as in the JAX package (its
+    # config.py:223); the GA has no eval episodes
+    tr = config.load_experiment(es_toy, overrides={**small, "num_eval_episodes": 3}, device="cpu")
+    tr.close()
+    assert tr.config.num_eval_episodes == 3
+    with pytest.raises(ValueError, match="ES only"):
+        config.load_experiment(ga_toy, overrides={**small, "num_eval_episodes": 3}, device="cpu")
