@@ -10,7 +10,8 @@ ends:
 1. device and build: the card's name and power limit; nvcc builds the
    kernels and g++ the host engine, side by side;
 2. kernel K1 (population_linear) against its plain PyTorch version, float32
-   and bfloat16, at the population fc's shape;
+   and bfloat16, at the population fc's shapes (B=256, 128 and the eval
+   episodes' 4), each on the bulk variant, beside one ``torch.bmm``;
 3. kernel K2 (noise_gradient) against its plain version at the ES
    gradient's shape, with unaligned offsets and one slice that ends at the
    table's last element;
@@ -172,36 +173,95 @@ def build_all() -> None:
     _cuda_build.load()
 
 
-def check_population_linear(device, cases=None) -> dict:
-    """K1 against its plain version at each (B, K, N, dtype) of ``cases``;
-    returns the first case's numbers."""
+def warm(fn, seconds: float = 1.0) -> None:
+    """Calls ``fn`` until ``seconds`` of the card's work have passed: the
+    first of a phase's timings after a spell of light load read up to 12%
+    slow on an H100 (K1 at the LargeDQN fc, timed right after the K3 and K5
+    phases), and 0.2 s of warm-up did not always cure it."""
     import torch
 
-    from deep_neuroevolution_torch.ops.population_linear import population_linear, population_linear_plain
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Milliseconds per call with the host's launch cost left out: ``calls``
+    calls captured in one CUDA graph, replayed ``replays`` times between
+    two CUDA events. Where a call's host cost exceeds its device time
+    (small shapes), ``cuda_ms`` measures the host and this the device."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture, as torch.cuda.graph asks
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+# K1 at the VBN-DQN's fc: B=256 is its shape with one group of 256 slots;
+# B=128 is what each of the ES generation's two pipeline groups gives it;
+# B=4 is an eval-episode group's (8 slots, two groups)
+K1_CASES = ((256, 3872, 256, "float32"), (256, 3872, 256, "bfloat16"), (128, 3872, 256, "float32"),
+            (4, 3872, 256, "float32"))
+
+
+def check_population_linear(device, cases=K1_CASES) -> dict:
+    """K1 against its plain version at each (B, K, N, dtype) of ``cases``,
+    each on the bulk variant (its counter must move); returns the first
+    case's numbers."""
+    import torch
+
+    from deep_neuroevolution_torch.ops import population_linear as k1
 
     gen = torch.Generator(device=device).manual_seed(1)
     out = []
-    # the VBN-DQN's fc: B=256 is its shape with one group of 256 slots; B=128
-    # is what each of the ES generation's two pipeline groups gives it
-    for B, K, N, dtype in cases or ((256, 3872, 256, torch.float32), (256, 3872, 256, torch.bfloat16),
-                                    (128, 3872, 256, torch.float32)):
+    for B, K, N, name in cases:
+        dtype = getattr(torch, name)
         x = torch.rand((B, K), generator=gen, device=device).to(dtype)
         W = torch.randn((B, K, N), generator=gen, device=device).to(dtype)
-        y = population_linear(x, W)
-        ref = population_linear_plain(x, W)
+        p = k1.plan_for(x, W)
+        bulk = k1.population_linear.bulk_launches
+        y = k1.population_linear(x, W)
+        require(k1.population_linear.bulk_launches == bulk + 1,
+                f"population_linear B={B} {name} did not take the bulk variant ({p.variant}: {p.reason})")
+        ref = k1.population_linear_plain(x, W)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
         tol = 1e-5 * float(ref.abs().max())  # float32 sums in another order
         require(bool(torch.isfinite(y).all()), "population_linear returned non-finite values")
         require(err <= tol, f"population_linear B={B} {dtype}: max abs err {err} > {tol}")
-        name = str(dtype).replace("torch.", "")
-        ms = cuda_ms(lambda: population_linear(x, W), 20)
-        plain_ms = cuda_ms(lambda: population_linear_plain(x, W), 10)
+        warm(lambda: k1.population_linear(x, W))
+        ms = cuda_ms(lambda: k1.population_linear(x, W), 20)
+        plain_ms = cuda_ms(lambda: k1.population_linear_plain(x, W), 10)
         library_ms = cuda_ms(lambda: torch.bmm(x[:, None, :], W), 20)
         s = x.element_size()
         bound_ms, bound_by = bound(B * K * N * s + B * K * s + B * N * 4, 2 * B * K * N, name)
-        row = dict(B=B, K=K, N=N, dtype=name, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        blocks_per_sm = k1.bulk_blocks_per_sm(dtype, p.smem_bytes)
+        require(blocks_per_sm >= k1.BLOCKS_PER_SM, f"the plan counts on {k1.BLOCKS_PER_SM} blocks an SM, "
+                f"the card fits {blocks_per_sm}")
+        row = dict(B=B, K=K, N=N, dtype=name, variant=p.variant, grid=p.grid, rows=p.rows, stages=p.stages,
+                   blocks_per_sm=blocks_per_sm, max_abs_err=err, tol=tol, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bound_over_ms=bound_ms / ms, ms_over_library=ms / library_ms,
+                   graph_ms=graph_ms(lambda: k1.population_linear(x, W)),
+                   library_graph_ms=graph_ms(lambda: torch.bmm(x[:, None, :], W)))
         print("population_linear " + json.dumps(row), flush=True)
         out.append(row)
         del x, W, y, ref
@@ -277,6 +337,8 @@ def run_generation(device) -> dict:
     print("launches " + json.dumps(launches), flush=True)
     for name in (population_linear.__name__, noise_gradient.__name__):
         require(launches[name] > 0, f"the main path never launched {name}")
+    require(launches["population_linear.bulk"] == launches["population_linear"],
+            "the main path launched population_linear's general variant")
     return dict(trainer=trainer, seconds=seconds, launches=launches)
 
 
@@ -344,10 +406,15 @@ def kernel_counters():
 def zero_counters() -> None:
     for f in kernel_counters().values():
         f.launches = 0
+    k1 = kernel_counters()["population_linear"]
+    k1.bulk_launches = k1.general_launches = 0
 
 
 def read_counters() -> dict:
-    return {name: f.launches for name, f in kernel_counters().items()}
+    """Each kernel's launches, and K1's by variant."""
+    counts = {name: f.launches for name, f in kernel_counters().items()}
+    k1 = kernel_counters()["population_linear"]
+    return {**counts, "population_linear.bulk": k1.bulk_launches, "population_linear.general": k1.general_launches}
 
 
 def random_genomes(model, B: int, gen, device):
@@ -782,7 +849,7 @@ def main() -> int:
     with Phase("K5 dqn_conv_chain_fused"):
         k5 = check_conv_chain(device)
     with Phase("K1 population_linear at the LargeDQN fc"):
-        check_population_linear(device, [(128, 7744, 512, torch.float32)])
+        check_population_linear(device, [(128, 7744, 512, "float32")])
     torch.cuda.empty_cache()
 
     with Phase("GA generations"):
@@ -846,7 +913,7 @@ def main() -> int:
                       for i in ("fused1", "fused"))
     kernels = [
         entry("population_linear", "deep_neuroevolution_torch/csrc/population_linear.cu",
-              "deep_neuroevolution_tpu/ops/pallas_forward.py:59", es_launches, k1),
+              "deep_neuroevolution_tpu/ops/pallas_forward.py:59", es_launches, k1, variant=k1["variant"]),
         entry("noise_gradient", "deep_neuroevolution_torch/csrc/noise_gradient.cu",
               "deep_neuroevolution_tpu/ops/pallas_kernels.py:120", es_launches, k2),
         entry("large_dqn_fused_scores", "deep_neuroevolution_torch/csrc/large_dqn_fused.cu",

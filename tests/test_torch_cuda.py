@@ -45,21 +45,48 @@ def _k1_inputs(B, K, N, device, dtype, offset=0):
     return x.to(device, dtype), Wd
 
 
+# (shape, offset, variant): the aligned main-path shapes take the bulk
+# variant; W off 16-byte alignment (offset=1), rows that are not a multiple
+# of 16 bytes (N=30, N=1) and K=0 take the general one
+K1_CASES = [
+    ((128, 3872, 256), 0, "bulk"),
+    ((4, 3872, 256), 0, "bulk"),
+    ((128, 7744, 512), 0, "bulk"),
+    ((5, 3872, 256), 1, "general"),
+    ((3, 100, 30), 0, "general"),
+    ((2, 7, 1), 0, "general"),
+    ((3, 0, 8), 0, "general"),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "shape,offset",
-    [((128, 3872, 256), 0), ((5, 3872, 256), 1), ((3, 100, 30), 0), ((2, 7, 1), 0), ((3, 0, 8), 0)],
-)
-def test_population_linear_matches_plain(cuda_device, shape, offset, dtype):
-    """f32 sums in another order: within 1e-5 of max|y|."""
+@pytest.mark.parametrize("shape,offset,variant", K1_CASES)
+def test_population_linear_matches_plain(cuda_device, shape, offset, variant, dtype):
+    """f32 sums in another order: within 1e-5 of max|y|. The variant's
+    counter moves, and only its own."""
     x, W = _k1_inputs(*shape, cuda_device, dtype, offset)
-    before = population_linear.launches
+    before = {v: getattr(population_linear, f"{v}_launches") for v in ("bulk", "general")}
+    launches = population_linear.launches
     y = population_linear(x, W)
     ref = population_linear_plain(x, W)
     torch.cuda.synchronize()
-    assert population_linear.launches == before + 1
+    assert population_linear.launches == launches + 1
+    other = "general" if variant == "bulk" else "bulk"
+    assert getattr(population_linear, f"{variant}_launches") == before[variant] + 1
+    assert getattr(population_linear, f"{other}_launches") == before[other]
     assert y.dtype == torch.float32 and y.shape == (shape[0], shape[2])
-    torch.testing.assert_close(y, ref, rtol=0, atol=1e-5 * max(1.0, float(ref.abs().max())))
+    torch.testing.assert_close(y, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset,variant", [K1_CASES[0], K1_CASES[1], K1_CASES[3]])
+def test_population_linear_repeats_bit_for_bit(cuda_device, shape, offset, variant, dtype):
+    """No float atomics: two launches on the same inputs give the same y."""
+    x, W = _k1_inputs(*shape, cuda_device, dtype, offset)
+    y1 = population_linear(x, W)
+    y2 = population_linear(x, W)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
 
 
 @pytest.mark.parametrize("B", [0, 1, 300, 1000])
@@ -106,7 +133,7 @@ def test_vbn_forward_card_matches_cpu(cuda_device):
 
 def test_es_generation_on_card(cuda_device, monkeypatch):
     """A small generation at full width on the card: both kernels launch,
-    and θ' is finite."""
+    K1 on its bulk variant only, and θ' is finite."""
     monkeypatch.setattr(tabular, "dump_tabular", lambda: tabular._logger._kvs.clear())
     env = AtariEnv("toy", batch_size=8, num_threads=2)
     model = VirtualBNDQN(num_actions=env.num_actions)
@@ -114,9 +141,12 @@ def test_es_generation_on_card(cuda_device, monkeypatch):
                       optimizer=optim.Adam(0.01), noise_table=NoiseTable.from_seed(count=2_000_000),
                       device=cuda_device)
     k1, k2 = population_linear.launches, noise_gradient.launches
+    bulk, general = population_linear.bulk_launches, population_linear.general_launches
     stats = tr.train_step()
     tr.close()
     assert population_linear.launches > k1 and noise_gradient.launches == k2 + 1
+    assert population_linear.bulk_launches - bulk == population_linear.launches - k1
+    assert population_linear.general_launches == general
     assert stats.returns.shape == (8, 2) and np.isfinite(stats.update_ratio)
     assert bool(torch.isfinite(tr.theta).all()) and tr.theta.device.type == "cuda"
 
