@@ -21,8 +21,9 @@ ends:
    Both kernels' launch counters must move, and a small forward on the card
    must agree with the same forward on the CPU;
 5. kernel K3 (large_dqn_fused_scores, the LargeDQN's whole-net forward)
-   against its plain version at B=128 and 256, 4 and 18 actions, beside
-   the split route's time;
+   against its plain version at B=128 and 256, 4 and 18 actions, and
+   against a second launch of itself (bit for bit), timed back-to-back and
+   in a CUDA graph after a warm-up, beside the split route's time;
 6. kernel K5 (dqn_conv_chain_fused) against its plain version, SmallDQN and
    LargeDQN geometries, float32 and bfloat16, beside the batched-product
    conv chain's time; and K1 at the LargeDQN's fc shape;
@@ -30,7 +31,9 @@ ends:
    through ``main train`` on the ToyCatch engine at full width, the
    population, cutoff and noise table cut to smoke size: K3's counter must
    move, every chain of generation 2 be of length 2 (but the elite carried
-   over), and a small forward on the card match the CPU's plain K3;
+   over), and a small forward on the card match the CPU's plain K3; then
+   K3 is timed (in a CUDA graph) at each batch size the two generations
+   launched it with, for its launches × time by batch size;
 8. one random-search generation of configurations/rs_atari_config.json
    (SmallDQN) through the Python API with ``conv_impl='fused'``: the K5
    and K1 counters must move;
@@ -408,6 +411,7 @@ def zero_counters() -> None:
         f.launches = 0
     k1 = kernel_counters()["population_linear"]
     k1.bulk_launches = k1.general_launches = 0
+    kernel_counters()["large_dqn_fused_scores"].launches_by_batch.clear()
 
 
 def read_counters() -> dict:
@@ -470,15 +474,20 @@ def check_large_fused(device) -> list:
             require(err <= tol, f"large_dqn_fused_scores B={B} A={na}: max abs err {err} > {tol}")
             require(bool((y[:, na:] < -1e8).all()), "a padded action lane lost its -1e9 bias")
             clear = check_top_actions(y[:, :na], ref[:, :na], tol, f"large_dqn_fused_scores B={B} A={na}")
+            require(torch.equal(y, fk.large_dqn_fused_scores(ops)), f"large_dqn_fused_scores B={B}: two launches differ")
+            warm(lambda: fk.large_dqn_fused_scores(ops))
             ms = cuda_ms(lambda: fk.large_dqn_fused_scores(ops), 20)
+            k3_graph_ms = graph_ms(lambda: fk.large_dqn_fused_scores(ops))
             plain_ms = cuda_ms(lambda: fk.large_dqn_fused_scores_plain(ops), 3, warmup=1)
             sparts, _ = split.prepare_batch_params((th, None))
+            warm(lambda: split.batch_scores_parts(sparts, obs), 0.5)
             split_ms = cuda_ms(lambda: split.batch_scores_parts(sparts, obs), 10)
             conv_ops = 2 * B * (441 * 256 * 32 + 121 * 512 * 64 + 121 * 576 * 64)  # bf16 products
             f32_ops = 2 * B * (121 * 64 * 512 + 512 * 64)  # the fc (f32 x3) and the out layer
             bound_ms, bound_by = bound(nbytes(*ops.values(), y), {"bfloat16": conv_ops, "float32": f32_ops})
             row = dict(B=B, num_actions=na, max_abs_err=err, tol=tol, argmax_rows_checked=clear, ms=ms,
-                       plain_ms=plain_ms, split_ms=split_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                       graph_ms=k3_graph_ms, plain_ms=plain_ms, split_ms=split_ms, library_ms=None, bound_ms=bound_ms,
+                       bound_by=bound_by, bound_over_ms=bound_ms / ms, bound_over_graph_ms=bound_ms / k3_graph_ms)
             print("large_dqn_fused_scores " + json.dumps(row), flush=True)
             rows.append(row)
             del th, parts, ops, sparts, y, ref
@@ -553,12 +562,14 @@ def run_ga(device) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_counters()
+        by_batch = dict(sorted(kernel_counters()["large_dqn_fused_scores"].launches_by_batch.items()))
         peak = torch.cuda.max_memory_allocated(device)
         with open(Path(log_dir) / "metrics.jsonl") as f:
             rows = [json.loads(line) for line in f]
     print("launches " + json.dumps(launches), flush=True)
     require(launches["large_dqn_fused_scores"] > 0, "the GA never launched large_dqn_fused_scores")
-    return dict(trainer=trainer, seconds=seconds, launches=launches, rows=rows, peak_bytes=peak)
+    require(sum(by_batch.values()) == launches["large_dqn_fused_scores"], "K3's launches by batch size do not add up")
+    return dict(trainer=trainer, seconds=seconds, launches=launches, k3_by_batch=by_batch, rows=rows, peak_bytes=peak)
 
 
 def check_ga(run: dict) -> None:
@@ -599,6 +610,38 @@ def check_ga(run: dict) -> None:
     print(f"GA forward card (K3) vs cpu (plain): max abs err {err:.3g} (tol {tol:.3g})", flush=True)
     require(err <= tol, f"card forward disagrees with the CPU's plain K3: {err} > {tol}")
     check_top_actions(card, cpu, tol, "GA forward")
+
+
+def time_large_fused_by_batch(device, by_batch: dict) -> dict:
+    """K3's device time (in a CUDA graph, after a warm-up) at each batch
+    size the GA launched it with, on first-generation genomes of the
+    phase's 4-action LargeDQN; prints launches × time by batch size and the
+    share of K3's time in batches below 128 (the ladder's buckets)."""
+    import torch
+
+    from deep_neuroevolution_torch.models.core import extract_patches
+    from deep_neuroevolution_torch.models.dqn import LargeDQN
+    from deep_neuroevolution_torch.ops import fused_dqn as fk
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    model = LargeDQN(num_actions=4, forward_impl="fused")
+    rows = []
+    for B, launches in by_batch.items():
+        parts, _ = model.prepare_batch_params((random_genomes(model, B, gen, device), None))
+        obs = torch.rand((B, 84, 84, 4), generator=gen, device=device)
+        ops = dict(parts["__fused_lg__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+        warm(lambda: fk.large_dqn_fused_scores(ops), 0.3)
+        ms = graph_ms(lambda: fk.large_dqn_fused_scores(ops))
+        rows.append(dict(B=B, launches=launches, graph_ms=ms, launches_x_ms=launches * ms))
+        print("large_dqn_fused_scores_by_batch " + json.dumps(rows[-1]), flush=True)
+        del parts, obs, ops
+        torch.cuda.empty_cache()
+    total = sum(r["launches_x_ms"] for r in rows)
+    small = sum(r["launches_x_ms"] for r in rows if r["B"] < 128)
+    summary = dict(launches=sum(by_batch.values()), total_ms=total, below_128_ms=small,
+                   below_128_share=small / total if total else 0.0)
+    print("large_dqn_fused_scores_by_batch_total " + json.dumps(summary), flush=True)
+    return summary
 
 
 def run_rs(device) -> dict:
@@ -865,8 +908,12 @@ def main() -> int:
         )), flush=True)
     print("ga_run " + json.dumps(dict(seconds=ga["seconds"], peak_memory_gb=ga["peak_bytes"] / 1e9,
                                       overrides=GA_OVERRIDES)), flush=True)
+    print("k3_launches_by_batch " + json.dumps(ga["k3_by_batch"]), flush=True)
+    k3_by_batch = ga["k3_by_batch"]
     del ga
     torch.cuda.empty_cache()
+    with Phase("K3 at the GA's batch sizes"):
+        time_large_fused_by_batch(device, k3_by_batch)
 
     with Phase("RS generation"):
         rs = run_rs(device)
@@ -918,7 +965,7 @@ def main() -> int:
               "deep_neuroevolution_tpu/ops/pallas_kernels.py:120", es_launches, k2),
         entry("large_dqn_fused_scores", "deep_neuroevolution_torch/csrc/large_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:298", ga_launches, k3_row,
-              split_ms=k3_row["split_ms"]),
+              graph_ms=k3_row["graph_ms"], split_ms=k3_row["split_ms"]),
         entry("vbn_dqn_fused1_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:147", route_launches["fused1"], k4_row,
               split_ms=k4_row["split_ms"]),

@@ -55,7 +55,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_ring.cuh"
+
 namespace {
+
+using nevo_ring::bulk_copy_g2s;
+using nevo_ring::mbar_arrive;
+using nevo_ring::mbar_arrive_expect_tx;
+using nevo_ring::mbar_init;
+using nevo_ring::mbar_wait;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -186,51 +194,6 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&o)[8]) {
     o[2 * i] = f.x;
     o[2 * i + 1] = f.y;
   }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-// One arrival that also announces `bytes` of bulk copies to come.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Spins until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
-// shared memory by the TMA; completion is counted on `bar`.
-__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 __device__ __forceinline__ void consumers_sync() {

@@ -3,8 +3,10 @@
 The counterpart of the JAX package's ops/pallas_fused_dqn.py:
 
 * ``large_dqn_fused_scores`` (K3): the whole LargeDQN forward, convs + fc
-  + out, one member per CUDA block (csrc/large_dqn_fused.cu), on the layout
-  that ``LargeDQN.fuse_prepare`` builds → padded scores ``[B, 64]`` f32;
+  + out, one member per CUDA block (csrc/large_dqn_fused.cu: the convs on
+  tensor cores, every byte streamed through a ring of bulk copies), on the
+  layout that ``LargeDQN.fuse_prepare`` builds → padded scores ``[B, 64]``
+  f32;
 * ``vbn_dqn_fused1_scores`` (K4) and ``vbn_dqn_fused_scores`` (K6): the
   whole VBN small DQN forward, each normalization folded into a scale a and
   shift c, one member per CUDA block (csrc/vbn_dqn_fused.cu), on the layout
@@ -199,10 +201,14 @@ def large_dqn_fused_scores(ops: Dict[str, torch.Tensor]) -> torch.Tensor:
                                    _cuda_build.current_stream(dev))
     _cuda_build.check(lib, err, "large_dqn_fused_scores")
     large_dqn_fused_scores.launches += 1
+    by_batch = large_dqn_fused_scores.launches_by_batch
+    by_batch[B] = by_batch.get(B, 0) + 1
     return out
 
 
 large_dqn_fused_scores.launches = 0  # kernel launches since the caller last set it to 0
+# the same launches by batch size B; a caller that zeroes .launches clears it too
+large_dqn_fused_scores.launches_by_batch = {}
 
 
 def dqn_conv_chain_fused(patches1, w1m, b1, w2m, b2, w3m=None, b3=None) -> torch.Tensor:

@@ -5,9 +5,10 @@ build of its CUDA source, in one process on one card.
     python scripts/torch_k1_ab.py --other path/to/population_linear.cu
 
 The other source (for example the parent commit's csrc/population_linear.cu,
-unpacked with ``git show``) is compiled by nvcc into its own library and
-called through its ``nevo_population_linear`` entry point (the C interface
-both builds share). At each of K1's five main-path shapes the script checks
+unpacked with ``git archive`` together with the headers beside it) is
+compiled by nvcc into its own library and called through its
+``nevo_population_linear`` entry point (the C interface both builds
+share). At each of K1's five main-path shapes the script checks
 both against the plain version (1e-5·max|y|), then times them in the order
 other, this, this, other: back-to-back calls by CUDA events (``ms``) and
 calls in a CUDA graph (``graph_ms``), beside one ``torch.bmm``. Last, it
@@ -20,14 +21,10 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
-import tempfile
-import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+from torch_ab import build_other, card, host_us, in_turns
 
 SHAPES = [(128, 3872, 256, "float32"), (256, 3872, 256, "bfloat16"), (256, 3872, 256, "float32"),
           (128, 7744, 512, "float32"), (4, 3872, 256, "float32")]
@@ -40,25 +37,19 @@ def main() -> int:
 
     import torch
 
-    from chip_smoke import bound, cuda_ms, graph_ms, warm
+    from chip_smoke import bound, cuda_ms, graph_ms
     from deep_neuroevolution_torch import resolve_device
     from deep_neuroevolution_torch.ops import _cuda_build
     from deep_neuroevolution_torch.ops import population_linear as pl
 
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_cuda_build.BUILD_DIR) as tmp:
-        so = Path(tmp) / "libk1other.so"
-        subprocess.run([_cuda_build._nvcc(), *_cuda_build.NVCC_FLAGS, "-shared", str(args.other), "-o", str(so)],
-                       check=True)
-        other_lib = ctypes.CDLL(str(so))
+    other_lib = build_other(args.other, "k1other")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     other_lib.nevo_population_linear.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     other_lib.nevo_population_linear.restype = i32
     _cuda_build.load()
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+    print(card(), flush=True)
     gen = torch.Generator(device=dev).manual_seed(3)
 
     for B, K, N, name in SHAPES:
@@ -85,14 +76,9 @@ def main() -> int:
             raise AssertionError(f"{errs} > {tol}")
         s = x.element_size()
         bound_ms, _ = bound(B * K * N * s + B * K * s + B * N * 4, 2 * B * K * N, name)
-        warm(other)
-        warm(this)
-        order = [other, this, this, other]
-        ms = [cuda_ms(f, 50) for f in order]
-        gms = [graph_ms(f) for f in order]
         bmm = lambda: torch.bmm(x[:, None, :], W)  # noqa: E731
         print("ab " + json.dumps(dict(
-            B=B, K=K, N=N, dtype=name, order="other this this other", ms=ms, graph_ms=gms,
+            B=B, K=K, N=N, dtype=name, **in_turns(other, this),
             bmm_ms=cuda_ms(bmm, 50), bmm_graph_ms=graph_ms(bmm), bound_ms=bound_ms, errs=errs, tol=tol,
         )), flush=True)
         del x, W, y_other, ref
@@ -108,16 +94,6 @@ def main() -> int:
         other_lib.nevo_population_linear(x.data_ptr(), W.data_ptr(), y.data_ptr(), 4, 3872, 256, 0,
                                          torch.cuda.current_stream(dev).cuda_stream)
         return y
-
-    def host_us(fn, n=2000):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        t = (time.perf_counter() - t0) / n * 1e6
-        torch.cuda.synchronize()
-        return t
 
     this_wrapper = lambda: pl.population_linear(x, W)  # noqa: E731
     us = [host_us(f) for f in (other_wrapper, this_wrapper, this_wrapper, other_wrapper)]

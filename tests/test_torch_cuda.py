@@ -161,23 +161,30 @@ def _frames(B, seed, device):
     return torch.rand(B, 84, 84, 4, generator=torch.Generator().manual_seed(seed + 1)).to(device)
 
 
+def _k3_ops(B, num_actions, device):
+    model = LargeDQN(num_actions=num_actions, forward_impl="fused")
+    parts, _ = model.prepare_batch_params((_genomes(model, B, B, device), None))
+    obs = _frames(B, B, device)
+    return dict(parts["__fused_lg__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+
+
 @pytest.mark.parametrize("num_actions", [4, 18])
-@pytest.mark.parametrize("B", [1, 7, 128])
+@pytest.mark.parametrize("B", [1, 7, 128, 256])
 def test_large_dqn_fused_matches_plain(cuda_device, B, num_actions):
     """K3 against its plain version on the card: within 1e-3·max|score|
     (both keep the bf16 roundings of x1 and x2 and sum in f32 in other
     orders, so a rounding can flip one ulp; dropping the roundings moves
-    the scores by 2e-3·max or more, TestCardTolerance in test_torch_dqn.py),
-    equal argmax away from near ties, padded lanes at −1e9."""
-    model = LargeDQN(num_actions=num_actions, forward_impl="fused")
-    parts, _ = model.prepare_batch_params((_genomes(model, B, B, cuda_device), None))
-    obs = _frames(B, B, cuda_device)
-    ops = dict(parts["__fused_lg__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+    the scores by 2e-3·max or more, while the kernel's chunked tensor-core
+    order stays inside, TestCardTolerance in test_torch_dqn.py), equal
+    argmax away from near ties, padded lanes at −1e9."""
+    ops = _k3_ops(B, num_actions, cuda_device)
     before = fk.large_dqn_fused_scores.launches
+    before_b = fk.large_dqn_fused_scores.launches_by_batch.get(B, 0)
     y = fk.large_dqn_fused_scores(ops)
     ref = fk.large_dqn_fused_scores_plain(ops)
     torch.cuda.synchronize()
     assert fk.large_dqn_fused_scores.launches == before + 1
+    assert fk.large_dqn_fused_scores.launches_by_batch[B] == before_b + 1
     assert y.shape == (B, 64) and y.dtype == torch.float32
     tol = 1e-3 * float(ref[:, :num_actions].abs().max())
     err = float((y[:, :num_actions] - ref[:, :num_actions]).abs().max())
@@ -187,6 +194,17 @@ def test_large_dqn_fused_matches_plain(cuda_device, B, num_actions):
     top2 = ref[:, :num_actions].topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > tol
     assert torch.equal(y.argmax(-1)[clear], ref.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("B", [1, 128])
+def test_large_dqn_fused_repeats_bit_for_bit(cuda_device, B):
+    """Every sum of K3 runs in a fixed order: two launches on the same
+    inputs give the same scores, bit for bit."""
+    ops = _k3_ops(B, 4, cuda_device)
+    y1 = fk.large_dqn_fused_scores(ops)
+    y2 = fk.large_dqn_fused_scores(ops)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -204,17 +204,51 @@ class TestConvChain:
         np.testing.assert_allclose(scores[0], scores[1], rtol=0, atol=1e-5 * np.abs(scores[1]).max())
 
 
-def _chain(p1, convs, acc, rounded):
+def _chain(p1, convs, acc, rounded, mm=torch.bmm):
     """The conv stack in ``acc`` precision; ``rounded`` rounds each product's
-    operand to its weight dtype, as K3 and K5 do."""
-    x = torch.relu(torch.bmm(p1.to(acc), convs[0][0].to(acc)) + convs[0][1].to(acc))
+    operand to its weight dtype, as K3 and K5 do; ``mm`` takes each product."""
+    x = torch.relu(mm(p1.to(acc), convs[0][0].to(acc)) + convs[0][1].to(acc))
     B = x.shape[0]
     for (w, b), (hw, k, s) in zip(convs[1:], ((21, 4, 2), (11, 3, 1))):
         if rounded:
             x = x.to(w.dtype)
         pt = t_patches(x.to(acc).reshape(B, hw, hw, -1), k, s).reshape(B, 121, -1)
-        x = torch.relu(torch.bmm(pt, w.to(acc)) + b.to(acc))
+        x = torch.relu(mm(pt, w.to(acc)) + b.to(acc))
     return x
+
+
+def _mma_steps(K):
+    """K3's k order on the tensor cores (csrc/dqn_conv_mma.cuh): in each
+    chunk of 32, step 0 takes k 8q..8q+3 and step 1 k 8q+4..8q+7, q < 4."""
+    return [c + 8 * q + 4 * s + i for c in range(0, K, 32) for s in (0, 1) for q in range(4) for i in range(4)]
+
+
+def _bmm_in_chunks(a, w, chunk=16):
+    """a · w in float32 the way K3's tensor-core product sums: K in the
+    kernel's steps of ``chunk``, each step's products summed first (exactly,
+    then rounded to float32), the steps' sums added in order."""
+    order = _mma_steps(a.shape[2])
+    a, w = a[..., order], w[:, order]
+    out = torch.zeros(a.shape[0], a.shape[1], w.shape[2], dtype=torch.float32)
+    for k0 in range(0, a.shape[2], chunk):
+        out = out + torch.bmm(a[..., k0:k0 + chunk].double(), w[:, k0:k0 + chunk].double()).float()
+    return out
+
+
+def _k3_case(num_actions, B, seed):
+    """K3's operands at B members, its convs, and the plain K3's scores."""
+    tm = tdqn.LargeDQN(num_actions=num_actions, forward_impl="fused")
+    parts, _ = tm.prepare_batch_params((torch.from_numpy(_thetas(tm, B, seed)), None))
+    patches = t_patches(torch.from_numpy(_obs(B, seed)).to(torch.bfloat16), 8, 4)
+    ops = dict(parts["__fused_lg__"], patches1=patches.reshape(B, 441, 256))
+    convs = [(ops[f"w{i}"], ops[f"b{i}"]) for i in (1, 2, 3)]
+    return ops, convs, tfk.large_dqn_fused_scores_plain(ops)[:, :num_actions]
+
+
+def _k3_head(ops, x3, acc, num_actions):
+    """K3's fc and out layer on the conv stack's x3, in ``acc`` precision."""
+    h = torch.relu(torch.einsum("bpc,bcpn->bn", x3, ops["wf"].to(acc)) + ops["bf"][:, 0].to(acc))
+    return (torch.bmm(h[:, None], ops["wo"].to(acc))[:, 0] + ops["bo"][:, 0].to(acc))[:, :num_actions]
 
 
 class TestCardTolerance:
@@ -229,19 +263,11 @@ class TestCardTolerance:
         kernel, arg = case.split("-")
         B = 4
         if kernel == "K3":
-            tm = tdqn.LargeDQN(num_actions=int(arg), forward_impl="fused")
-            na = tm.num_actions
-            parts, _ = tm.prepare_batch_params((torch.from_numpy(_thetas(tm, B, 7)), None))
-            patches = t_patches(torch.from_numpy(_obs(B, 7)).to(torch.bfloat16), 8, 4)
-            ops = dict(parts["__fused_lg__"], patches1=patches.reshape(B, 441, 256))
-            convs = [(ops[f"w{i}"], ops[f"b{i}"]) for i in (1, 2, 3)]
+            ops, convs, ref = _k3_case(int(arg), B, 7)
 
             def out(acc, rounded):
-                x3 = _chain(ops["patches1"], convs, acc, rounded)
-                h = torch.relu(torch.einsum("bpc,bcpn->bn", x3, ops["wf"].to(acc)) + ops["bf"][:, 0].to(acc))
-                return (torch.bmm(h[:, None], ops["wo"].to(acc))[:, 0] + ops["bo"][:, 0].to(acc))[:, :na]
+                return _k3_head(ops, _chain(ops["patches1"], convs, acc, rounded), acc, int(arg))
 
-            ref = tfk.large_dqn_fused_scores_plain(ops)[:, :na]
         else:
             tm = getattr(tdqn, arg)(num_actions=4, compute_dtype="bfloat16", conv_impl="fused",
                                     **({"forward_impl": "split"} if arg == "LargeDQN" else {}))
@@ -259,6 +285,21 @@ class TestCardTolerance:
         f64 = float((out(torch.float64, True) - ref.double()).abs().max()) / top
         print(f"{case}: dropped roundings {dropped:.3g}·max, float64 sums {f64:.3g}·max")
         assert dropped > 1e-3 > f64
+
+    @pytest.mark.parametrize("num_actions", [4, 18])
+    def test_k3_tensor_core_order_stays_inside_the_limit(self, num_actions):
+        """K3's convs on tensor cores sum each product in steps of 16 k,
+        each step first, then the steps in order. With the same rounding
+        points that order moves the scores by less than 1e-3·max, while
+        dropping the roundings moves them by more."""
+        ops, convs, ref = _k3_case(num_actions, 4, 7)
+        top = float(ref.abs().max())
+        x3 = _chain(ops["patches1"], convs, torch.float32, True, mm=_bmm_in_chunks)
+        chunked = float((_k3_head(ops, x3, torch.float32, num_actions) - ref).abs().max()) / top
+        x3 = _chain(ops["patches1"], convs, torch.float32, False, mm=_bmm_in_chunks)
+        dropped = float((_k3_head(ops, x3, torch.float32, num_actions) - ref).abs().max()) / top
+        print(f"K3-{num_actions}: steps of 16 {chunked:.3g}·max, the same with dropped roundings {dropped:.3g}·max")
+        assert chunked < 1e-3 < dropped
 
 
 class TestWrapperChecks:

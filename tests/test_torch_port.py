@@ -35,8 +35,10 @@ _IMPORT = re.compile(
 
 
 def _port_files():
-    files = [ROOT / "chip_smoke.py"]
-    for ext in ("*.py", "*.cu", "*.cpp", "*.h"):
+    """chip_smoke.py, the port's A/B scripts and every source of the port,
+    its CUDA headers included."""
+    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("torch_*.py"))]
+    for ext in ("*.py", "*.cu", "*.cuh", "*.cpp", "*.h"):
         files += [p for p in PORT.rglob(ext) if "_build" not in p.parts]
     return files
 
@@ -53,9 +55,12 @@ def test_every_module_is_listed():
 
 
 def test_no_jax_import_and_no_cpp_extension_in_the_port():
-    """No file of the port or chip_smoke.py imports jax or the JAX package
-    (naming the JAX package's files in prose, as each kernel's note does, is
-    fine), and none uses torch.utils.cpp_extension or torch/extension.h."""
+    """No file of the port, chip_smoke.py or the port's A/B scripts imports
+    jax or the JAX package (naming the JAX package's files in prose, as each
+    kernel's note does, is fine), and none uses torch.utils.cpp_extension or
+    torch/extension.h."""
+    names = {p.name for p in _port_files()}
+    assert {"dqn_conv_mma.cuh", "bulk_ring.cuh", "torch_k3_ab.py", "torch_ab.py"} <= names
     offenders = []
     for path in _port_files():
         text = path.read_text()
