@@ -25,8 +25,9 @@ ends:
    against a second launch of itself (bit for bit), timed back-to-back and
    in a CUDA graph after a warm-up, beside the split route's time;
 6. kernel K5 (dqn_conv_chain_fused) against its plain version, SmallDQN and
-   LargeDQN geometries, float32 and bfloat16, beside the batched-product
-   conv chain's time; and K1 at the LargeDQN's fc shape;
+   LargeDQN geometries, float32 and bfloat16, timed back-to-back and in a
+   CUDA graph beside the batched-product conv chain's time, and at B=1
+   and 7; and K1 at the LargeDQN's fc shape;
 7. two GA generations of configurations/ga_atari_config.json (LargeDQN)
    through ``main train`` on the ToyCatch engine at full width, the
    population, cutoff and noise table cut to smoke size: K3's counter must
@@ -36,7 +37,8 @@ ends:
    launched it with, for its launches × time by batch size;
 8. one random-search generation of configurations/rs_atari_config.json
    (SmallDQN) through the Python API with ``conv_impl='fused'``: the K5
-   and K1 counters must move;
+   and K1 counters must move; then K5 is timed (in a CUDA graph) at each
+   batch size the generation launched it with;
 9. kernels K4 (vbn_dqn_fused1_scores) and K6 (vbn_dqn_fused_scores), the
    VBN-DQN's whole-net forwards, against their plain versions at B=1, 8,
    128 and 256, 4 and 18 actions, beside the split route's time (convs, K1
@@ -99,9 +101,13 @@ GA_OVERRIDES = {
 }
 # K3 at B=128, what each of the GA's two pipeline groups of 256 slots gives
 # it, and B=256, one group of 256; K5 at B=128 (SmallDQN f32, the RS
-# phase's per-group shape) and at B=256 for both geometries and types
+# phase's per-group shape), at B=256 for both geometries and types, and at
+# B=1 and 7 (a persistent block with few members) for SmallDQN f32 and
+# LargeDQN bf16
 K3_BATCHES = (128, 256)
-K5_BATCHES = (128, 256)
+K5_CASES = (("SmallDQN", "float32", 128), ("SmallDQN", "float32", 256), ("SmallDQN", "bfloat16", 256),
+            ("LargeDQN", "float32", 256), ("LargeDQN", "bfloat16", 256), ("SmallDQN", "float32", 1),
+            ("SmallDQN", "float32", 7), ("LargeDQN", "bfloat16", 1), ("LargeDQN", "bfloat16", 7))
 # phase 8's cut of rs_atari_config.json (population 1000, cutoff 5000)
 RS_CUT = {"population_size": 256, "episode_cutoff_mode": 200, "noise_size": 25_000_000, "batch_size": 256}
 # K4 and K6 at B=8 (the eval episodes), 128 (one of an ES round's two
@@ -412,6 +418,7 @@ def zero_counters() -> None:
     k1 = kernel_counters()["population_linear"]
     k1.bulk_launches = k1.general_launches = 0
     kernel_counters()["large_dqn_fused_scores"].launches_by_batch.clear()
+    kernel_counters()["dqn_conv_chain_fused"].launches_by_batch.clear()
 
 
 def read_counters() -> dict:
@@ -495,47 +502,67 @@ def check_large_fused(device) -> list:
     return rows
 
 
-def check_conv_chain(device) -> list:
-    """K5 against its plain version. float32: within 1e-5·max|x| (sums in
-    another order). bfloat16: within 1e-3·max|x|, as K3 (the bf16 roundings
-    of the intermediates are kept; dropping them moves x by 2e-3·max or
-    more)."""
+def conv_chain_bound(cls, dt: str, B: int, args, y):
+    """K5's bound at B members: the bytes of its inputs and output, and its
+    products' operations at the rate of the compute dtype."""
+    (_, c1, _, _), (_, c2, _, _) = cls.LAYERS[:2]
+    c3 = cls.LAYERS[2][1] if len(cls.LAYERS) > 2 else 0
+    ops = 2 * B * (441 * 256 * c1 + 121 * 16 * c1 * c2 + 121 * 9 * c2 * c3)
+    return bound(nbytes(*(a for a in args if a is not None), y), ops, dt)
+
+
+def conv_chain_case(cls, dt: str, B: int, gen, device):
+    """K5's operands for B first-generation genomes of ``cls`` and random
+    frames: the model, its fused parts, the frames and the kernel's args."""
     import torch
 
-    from deep_neuroevolution_torch.models.dqn import LargeDQN, SmallDQN
+    from deep_neuroevolution_torch.models.dqn import LargeDQN
+
+    kw = {"forward_impl": "split"} if cls is LargeDQN else {}
+    model = cls(num_actions=4, compute_dtype=dt, conv_impl="fused", **kw)
+    parts, _ = model.prepare_batch_params((random_genomes(model, B, gen, device), None))
+    obs = torch.rand((B, 84, 84, 4), generator=gen, device=device)
+    return model, parts, obs, model.conv_chain_args(parts, obs)
+
+
+def check_conv_chain(device) -> list:
+    """K5 against its plain version at each of ``K5_CASES``. float32:
+    within 1e-5·max|x| (sums in another order). bfloat16: within
+    1e-3·max|x|, as K3 (the bf16 roundings of the intermediates are kept;
+    dropping them moves x by 2e-3·max or more, while the tensor cores'
+    summation order stays inside). Timed back-to-back and in a CUDA graph;
+    a second launch must repeat the first bit for bit."""
+    import torch
+
+    from deep_neuroevolution_torch import models
     from deep_neuroevolution_torch.ops import fused_dqn as fk
 
     gen = torch.Generator(device=device).manual_seed(4)
     rows = []
-    cases = [(SmallDQN, "float32", K5_BATCHES[0])] + [
-        (c, d, K5_BATCHES[1]) for c in (SmallDQN, LargeDQN) for d in ("float32", "bfloat16")
-    ]
-    for cls, dt, B in cases:
-        kw = {"forward_impl": "split"} if cls is LargeDQN else {}
-        fused, einsum = (cls(num_actions=4, compute_dtype=dt, conv_impl=impl, **kw) for impl in ("fused", "einsum"))
-        th = random_genomes(fused, B, gen, device)
-        obs = torch.rand((B, 84, 84, 4), generator=gen, device=device)
-        parts, _ = fused.prepare_batch_params((th, None))
-        args = fused.conv_chain_args(parts, obs)
+    for name, dt, B in K5_CASES:
+        cls = getattr(models, name)
+        fused, parts, obs, args = conv_chain_case(cls, dt, B, gen, device)
+        einsum = dataclasses.replace(fused, conv_impl="einsum")
         y = fk.dqn_conv_chain_fused(*args)
         ref = fk.dqn_conv_chain_plain(*args)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
         tol = (1e-5 if dt == "float32" else 1e-3) * float(ref.abs().max())
         require(bool(torch.isfinite(y).all()), "dqn_conv_chain_fused returned non-finite values")
-        require(err <= tol, f"dqn_conv_chain_fused {cls.__name__} {dt} B={B}: max abs err {err} > {tol}")
+        require(err <= tol, f"dqn_conv_chain_fused {name} {dt} B={B}: max abs err {err} > {tol}")
+        require(torch.equal(y, fk.dqn_conv_chain_fused(*args)), f"dqn_conv_chain_fused {name} {dt} B={B}: two launches differ")
+        warm(lambda: fk.dqn_conv_chain_fused(*args), 0.3)
         ms = cuda_ms(lambda: fk.dqn_conv_chain_fused(*args), 20)
+        k5_graph_ms = graph_ms(lambda: fk.dqn_conv_chain_fused(*args))
         plain_ms = cuda_ms(lambda: fk.dqn_conv_chain_plain(*args), 5)
         einsum_ms = cuda_ms(lambda: einsum.conv_acts(parts, obs), 10)
-        (_, c1, _, _), (_, c2, _, _) = cls.LAYERS[:2]
-        c3 = cls.LAYERS[2][1] if len(cls.LAYERS) > 2 else 0
-        ops = 2 * B * (441 * 256 * c1 + 121 * 16 * c1 * c2 + 121 * 9 * c2 * c3)
-        bound_ms, bound_by = bound(nbytes(*args, y), ops, dt)
-        row = dict(model=cls.__name__, dtype=dt, B=B, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                   einsum_ms=einsum_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms, bound_by = conv_chain_bound(cls, dt, B, args, y)
+        row = dict(model=name, dtype=dt, B=B, max_abs_err=err, tol=tol, ms=ms, graph_ms=k5_graph_ms,
+                   plain_ms=plain_ms, einsum_ms=einsum_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   bound_over_graph_ms=bound_ms / k5_graph_ms)
         print("dqn_conv_chain_fused " + json.dumps(row), flush=True)
         rows.append(row)
-        del th, parts, args, y, ref
+        del parts, obs, args, y, ref
         torch.cuda.empty_cache()
     return rows
 
@@ -612,11 +639,45 @@ def check_ga(run: dict) -> None:
     check_top_actions(card, cpu, tol, "GA forward")
 
 
+def time_by_batch(name: str, by_batch: dict, make_call, rel_tol: float, lanes=None) -> dict:
+    """A kernel at each batch size a path launched it with: ``make_call(B)``
+    returns a call of the kernel on fresh operands of B members and a call
+    of its plain version on the same operands. Each B is first checked
+    against the plain version (the last axis's first ``lanes`` entries,
+    within ``rel_tol``·max|ref|) and for a bit-for-bit second launch, then
+    timed in a CUDA graph after a warm-up.
+    Prints launches × time by batch size and the share of the kernel's time
+    in batches below 128 (the ladder's buckets)."""
+    import torch
+
+    rows = []
+    for B, launches in by_batch.items():
+        call, plain = make_call(B)
+        y, ref = call(), plain()
+        torch.cuda.synchronize()
+        y, ref = y[..., :lanes], ref[..., :lanes]
+        err, tol = float((y - ref).abs().max()), rel_tol * float(ref.abs().max())
+        require(bool(torch.isfinite(y).all()), f"{name} B={B} returned non-finite values")
+        require(err <= tol, f"{name} B={B}: max abs err {err} > {tol}")
+        require(torch.equal(y, call()[..., :lanes]), f"{name} B={B}: two launches differ")
+        del y, ref
+        warm(call, 0.3)
+        ms = graph_ms(call)
+        rows.append(dict(B=B, launches=launches, graph_ms=ms, launches_x_ms=launches * ms, max_abs_err=err, tol=tol))
+        print(f"{name}_by_batch " + json.dumps(rows[-1]), flush=True)
+        del call, plain
+        torch.cuda.empty_cache()
+    total = sum(r["launches_x_ms"] for r in rows)
+    small = sum(r["launches_x_ms"] for r in rows if r["B"] < 128)
+    summary = dict(launches=sum(by_batch.values()), total_ms=total, below_128_ms=small,
+                   below_128_share=small / total if total else 0.0)
+    print(f"{name}_by_batch_total " + json.dumps(summary), flush=True)
+    return summary
+
+
 def time_large_fused_by_batch(device, by_batch: dict) -> dict:
-    """K3's device time (in a CUDA graph, after a warm-up) at each batch
-    size the GA launched it with, on first-generation genomes of the
-    phase's 4-action LargeDQN; prints launches × time by batch size and the
-    share of K3's time in batches below 128 (the ladder's buckets)."""
+    """K3 at each batch size the GA launched it with, on first-generation
+    genomes of the phase's 4-action LargeDQN, checked and timed."""
     import torch
 
     from deep_neuroevolution_torch.models.core import extract_patches
@@ -625,23 +686,34 @@ def time_large_fused_by_batch(device, by_batch: dict) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(7)
     model = LargeDQN(num_actions=4, forward_impl="fused")
-    rows = []
-    for B, launches in by_batch.items():
+
+    def make_call(B):
         parts, _ = model.prepare_batch_params((random_genomes(model, B, gen, device), None))
         obs = torch.rand((B, 84, 84, 4), generator=gen, device=device)
         ops = dict(parts["__fused_lg__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
-        warm(lambda: fk.large_dqn_fused_scores(ops), 0.3)
-        ms = graph_ms(lambda: fk.large_dqn_fused_scores(ops))
-        rows.append(dict(B=B, launches=launches, graph_ms=ms, launches_x_ms=launches * ms))
-        print("large_dqn_fused_scores_by_batch " + json.dumps(rows[-1]), flush=True)
-        del parts, obs, ops
-        torch.cuda.empty_cache()
-    total = sum(r["launches_x_ms"] for r in rows)
-    small = sum(r["launches_x_ms"] for r in rows if r["B"] < 128)
-    summary = dict(launches=sum(by_batch.values()), total_ms=total, below_128_ms=small,
-                   below_128_share=small / total if total else 0.0)
-    print("large_dqn_fused_scores_by_batch_total " + json.dumps(summary), flush=True)
-    return summary
+        return lambda: fk.large_dqn_fused_scores(ops), lambda: fk.large_dqn_fused_scores_plain(ops)
+
+    # as phase 5: 1e-3·max|score| over the 4 actions (the other lanes carry the -1e9 bias)
+    return time_by_batch("large_dqn_fused_scores", by_batch, make_call, 1e-3, lanes=4)
+
+
+def time_conv_chain_by_batch(device, by_batch: dict) -> dict:
+    """K5 at each batch size the RS generation launched it with, on
+    first-generation SmallDQN genomes in float32 (the RS's route), checked
+    and timed."""
+    import torch
+
+    from deep_neuroevolution_torch.models.dqn import SmallDQN
+    from deep_neuroevolution_torch.ops import fused_dqn as fk
+
+    gen = torch.Generator(device=device).manual_seed(8)
+
+    def make_call(B):
+        *_, args = conv_chain_case(SmallDQN, "float32", B, gen, device)
+        return lambda: fk.dqn_conv_chain_fused(*args), lambda: fk.dqn_conv_chain_plain(*args)
+
+    # as phase 6 in float32: 1e-5·max|x|
+    return time_by_batch("dqn_conv_chain_fused", by_batch, make_call, 1e-5)
 
 
 def run_rs(device) -> dict:
@@ -679,14 +751,17 @@ def run_rs(device) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_counters()
+        k5_by_batch = dict(sorted(kernel_counters()["dqn_conv_chain_fused"].launches_by_batch.items()))
     finally:
         env.close()
     print("launches " + json.dumps(launches), flush=True)
     for name in ("dqn_conv_chain_fused", "population_linear"):
         require(launches[name] > 0, f"random search never launched {name}")
+    require(sum(k5_by_batch.values()) == launches["dqn_conv_chain_fused"], "K5's launches by batch size do not add up")
     require(tr.state.it == 1 and tr.best_seeds is not None and len(tr.best_seeds) == 1
             and math.isfinite(tr.best_score), "random search kept no best genome")
-    return dict(trainer=tr, seconds=seconds, launches=launches, peak_bytes=torch.cuda.max_memory_allocated(device))
+    return dict(trainer=tr, seconds=seconds, launches=launches, k5_by_batch=k5_by_batch,
+                peak_bytes=torch.cuda.max_memory_allocated(device))
 
 
 def vbn_members(model, B: int, gen, device):
@@ -919,12 +994,16 @@ def main() -> int:
         rs = run_rs(device)
     st = rs["trainer"].state
     rs_launches = rs["launches"]
+    k5_by_batch = rs["k5_by_batch"]
     print("rs_generation " + json.dumps(dict(
         seconds=rs["seconds"], timesteps=st.timesteps_so_far, frames_per_s=4 * st.timesteps_so_far / rs["seconds"],
         best_score=rs["trainer"].best_score, peak_memory_gb=rs["peak_bytes"] / 1e9, cut=RS_CUT,
     )), flush=True)
+    print("k5_launches_by_batch " + json.dumps(k5_by_batch), flush=True)
     del rs
     torch.cuda.empty_cache()
+    with Phase("K5 at the RS's batch sizes"):
+        time_conv_chain_by_batch(device, k5_by_batch)
 
     with Phase("K4/K6 vbn_dqn_fused"):
         vbn = check_vbn_fused(device)
@@ -971,7 +1050,8 @@ def main() -> int:
               split_ms=k4_row["split_ms"]),
         entry("dqn_conv_chain_fused", "deep_neuroevolution_torch/csrc/dqn_conv_chain.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:422", rs_launches, k5_row,
-              einsum_ms=k5_row["einsum_ms"]),
+              graph_ms=k5_row["graph_ms"], einsum_ms=k5_row["einsum_ms"],
+              launches_by_batch={str(b): n for b, n in k5_by_batch.items()}),
         entry("vbn_dqn_fused_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:471", route_launches["fused"], k6_row,
               split_ms=k6_row["split_ms"]),

@@ -62,11 +62,6 @@ using nevo_dqn::kH2;
 using nevo_dqn::kKK1;
 using nevo_dqn::kP1;
 using nevo_dqn::kP2;
-using nevo_ring::bulk_copy_g2s;
-using nevo_ring::mbar_arrive;
-using nevo_ring::mbar_arrive_expect_tx;
-using nevo_ring::mbar_init;
-using nevo_ring::mbar_wait;
 
 constexpr int kC1 = 32, kC2 = 64, kC3 = 64, kFC = 512, kNOut = 64;
 constexpr int kConsumerWarps = nevo_mma::kWarps;
@@ -110,12 +105,6 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-// Orders this thread's earlier shared-memory reads and writes (generic
-// proxy) before the TMA's later writes (async proxy) to the same bytes.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
     large_dqn_fused_kernel(const bf16* __restrict__ patches1, const bf16* __restrict__ w1,
                            const float* __restrict__ b1, const bf16* __restrict__ w2,
@@ -124,7 +113,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const float* __restrict__ bfc, const float* __restrict__ wo,
                            const float* __restrict__ bo, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ring = smem;
   bf16* x1 = reinterpret_cast<bf16*>(smem + kX1Off);
   float* x3 = reinterpret_cast<float*>(smem + kX1Off);  // channel-major [64, 121], once x1 is spent
   bf16* x2 = reinterpret_cast<bf16*>(smem + kX2Off);
@@ -132,19 +120,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* x4 = red + kGroups * kFC;
   float* red_out = x4 + kFC;  // [kGroups, 64]
   bf16* zero = reinterpret_cast<bf16*>(smem + kZeroOff);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOff);
-  uint64_t* empty = full + kStages;
+  const auto ring =
+      nevo_ring::ring_init<kStages, kStageBytes>(smem, reinterpret_cast<uint64_t*>(smem + kBarOff), kConsumerWarps);
 
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
   if (tid < 8) reinterpret_cast<uint4*>(zero)[tid] = make_uint4(0, 0, 0, 0);
   __syncthreads();
 
@@ -152,8 +133,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     // producer: one thread streams the member's items through the ring
     if (lane == 0) {
       for (int i = 0; i < kItems; ++i) {
-        const int s = i % kStages;
-        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);  // the first pass finds every stage free
         const void* src;
         int bytes;
         if (i == kItemW1) {
@@ -177,66 +156,53 @@ __global__ void __launch_bounds__(kThreads, 1)
           src = wo + (b * kFC + (i - kItemO) * kORows) * kNOut;
           bytes = kStageBytes;
         }
-        mbar_arrive_expect_tx(&full[s], bytes);
-        bulk_copy_g2s(ring + s * kStageBytes, src, bytes, &full[s]);
+        ring.put(i, src, bytes);
       }
     }
     return;
   }
 
-  // consumers: take item i from its stage, release it when the warp is
-  // done with it. The proxy fence keeps the warp's reads and writes of the
-  // stage before the TMA refills it; without it an ldmatrix whose
-  // registers are used only later (w1's) read the refilled stage.
-  auto acquire = [&](int i) -> unsigned char* {
-    mbar_wait(&full[i % kStages], (i / kStages) & 1);
-    return ring + (i % kStages) * kStageBytes;
-  };
-  auto release = [&](int i) {
-    fence_proxy_async();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[i % kStages]);
-  };
-
+  // consumers: take item i from its stage (ring.acquire), free it when the
+  // warp is done with it (ring.release, behind the proxy fence).
   // conv1: x1 = relu(patches1 · w1 + b1) in bf16, piece by piece; w1's
   // fragments stay in registers
   {
     uint32_t bw1[2][8][4];
-    nevo_mma::load_w1_frags(bw1, acquire(kItemW1), 2 * (warp & 1), lane);
-    release(kItemW1);
+    nevo_mma::load_w1_frags<4>(bw1, ring.acquire(kItemW1), 2 * (warp & 1), lane);
+    ring.release(kItemW1, lane);
     const float* b1b = b1 + b * kC1;
 #pragma unroll 1
     for (int piece = 0; piece < kNP; ++piece) {
       const int p0 = piece * kPRows;
       bf16* x1p = x1 + p0 * kX1Pitch;
-      nevo_mma::conv1_rows(acquire(kItemP + piece), min(kPRows, kP1 - p0), bw1, warp, lane,
+      nevo_mma::conv1_rows(ring.acquire(kItemP + piece), min(kPRows, kP1 - p0), bw1, warp, lane,
                            nevo_mma::StoreBf16Rows{x1p, kX1Pitch, b1b});
-      release(kItemP + piece);
+      ring.release(kItemP + piece, lane);
     }
   }
   consumers_sync();
 
   // conv2 k4 s2: x2 = relu(im2col(x1) · w2 + b2) in bf16
   {
-    unsigned char* w = ring + (kItemW2 % kStages) * kStageBytes;
-    for (int i = kItemW2; i < kItemW3; ++i) acquire(i);
+    unsigned char* w = ring.stage(kItemW2);
+    for (int i = kItemW2; i < kItemW3; ++i) ring.acquire(i);
     nevo_mma::swizzle_rows8(w, kK2, tid, kConsumers);
     consumers_sync();
     nevo_mma::conv_mma<4, 2, 1, kH1, kH2, kC1, kX1Pitch>(x1, zero, w, warp, lane,
                                                           nevo_mma::StoreBf16Rows{x2, kX2Pitch, b2 + b * kC2});
-    for (int i = kItemW2; i < kItemW3; ++i) release(i);
+    for (int i = kItemW2; i < kItemW3; ++i) ring.release(i, lane);
   }
   consumers_sync();
 
   // conv3 k3 s1: x3 = relu(im2col(x2) · w3 + b3) in float32, channel-major
   {
-    unsigned char* w = ring + (kItemW3 % kStages) * kStageBytes;
-    for (int i = kItemW3; i < kItemF; ++i) acquire(i);
+    unsigned char* w = ring.stage(kItemW3);
+    for (int i = kItemW3; i < kItemF; ++i) ring.acquire(i);
     nevo_mma::swizzle_rows8(w, kK3, tid, kConsumers);
     consumers_sync();
     nevo_mma::conv_mma<3, 1, 1, kH2, kH2, kC2, kX2Pitch>(x2, zero, w, warp, lane,
                                                           nevo_mma::StoreF32ChannelMajor{x3, kP2, b3 + b * kC3});
-    for (int i = kItemW3; i < kItemF; ++i) release(i);
+    for (int i = kItemW3; i < kItemF; ++i) ring.release(i, lane);
   }
   consumers_sync();
 
@@ -247,7 +213,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     float acc[8] = {};
 #pragma unroll 1
     for (int f = 0; f < kNF; ++f) {
-      const bf16* ws = reinterpret_cast<const bf16*>(acquire(kItemF + f)) + col * 8;
+      const bf16* ws = reinterpret_cast<const bf16*>(ring.acquire(kItemF + f)) + col * 8;
       const float* xr = x3 + f * kFRows;
 #pragma unroll
       for (int r = grp; r < kFRows; r += kGroups) {
@@ -257,7 +223,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[j] = fmaf(xv, w[j], acc[j]);
       }
-      release(kItemF + f);
+      ring.release(kItemF + f, lane);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) red[grp * kFC + col * 8 + j] = acc[j];
@@ -279,11 +245,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     float s = 0.f;
 #pragma unroll 1
     for (int o = 0; o < kNO; ++o) {
-      const float* ws = reinterpret_cast<const float*>(acquire(kItemO + o)) + part * kSpan * kNOut + a;
+      const float* ws = reinterpret_cast<const float*>(ring.acquire(kItemO + o)) + part * kSpan * kNOut + a;
       const float* xk = x4 + o * kORows + part * kSpan;
 #pragma unroll 8
       for (int k = 0; k < kSpan; ++k) s = fmaf(xk[k], ws[k * kNOut], s);
-      release(kItemO + o);
+      ring.release(kItemO + o, lane);
     }
     red_out[part * kNOut + a] = s;
   }
@@ -312,7 +278,7 @@ extern "C" int nevo_large_dqn_fused(const void* patches1, const void* w1, const 
   if (!aligned16(patches1) || !aligned16(w1) || !aligned16(w2) || !aligned16(w3) || !aligned16(wf) ||
       !aligned16(wo))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = nevo_dqn::allow_smem(large_dqn_fused_kernel, kSmemBytes);
+  cudaError_t err = nevo_ring::allow_smem(large_dqn_fused_kernel, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   large_dqn_fused_kernel<<<B, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(patches1), static_cast<const bf16*>(w1),

@@ -60,6 +60,7 @@
 namespace {
 
 using nevo_ring::bulk_copy_g2s;
+using nevo_ring::fence_proxy_async;
 using nevo_ring::mbar_arrive;
 using nevo_ring::mbar_arrive_expect_tx;
 using nevo_ring::mbar_init;
@@ -353,6 +354,7 @@ __global__ void __launch_bounds__(kBulkThreads, kBlocksPerSM)
         for (int v = 0; v < VEC; ++v) acc[v] = fmaf(xk, w[v], acc[v]);
       }
     }
+    fence_proxy_async();  // the reads above before the TMA refills the stage
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[stage]);
     if (++stage == stages) {

@@ -14,7 +14,9 @@ The counterpart of the JAX package's ops/pallas_fused_dqn.py:
   K6) → padded scores ``[B, 64]`` f32;
 * ``dqn_conv_chain_fused`` (K5): the conv stack of SmallDQN (2 convs) or
   LargeDQN (3 convs) alone → ``[B, 121, c_out]`` f32
-  (csrc/dqn_conv_chain.cu); the fc stays on K1.
+  (csrc/dqn_conv_chain.cu: a persistent grid whose blocks stream their
+  members through a ring of bulk copies; bf16 convs on tensor cores); the
+  fc stays on K1.
 
 Each wrapper launches its kernel on a CUDA tensor, runs its plain PyTorch
 version (``*_plain``) on a CPU tensor and raises on any other device. The
@@ -248,7 +250,11 @@ def dqn_conv_chain_fused(patches1, w1m, b1, w2m, b2, w3m=None, b3=None) -> torch
     )
     _cuda_build.check(lib, err, "dqn_conv_chain_fused")
     dqn_conv_chain_fused.launches += 1
+    by_batch = dqn_conv_chain_fused.launches_by_batch
+    by_batch[B] = by_batch.get(B, 0) + 1
     return out
 
 
 dqn_conv_chain_fused.launches = 0  # kernel launches since the caller last set it to 0
+# the same launches by batch size B; a caller that zeroes .launches clears it too
+dqn_conv_chain_fused.launches_by_batch = {}

@@ -12,6 +12,7 @@ import torch
 
 from deep_neuroevolution_torch.algos import es
 from deep_neuroevolution_torch.algos import ga
+from deep_neuroevolution_torch.algos.rollout_host import collect_ref_batch_host
 from deep_neuroevolution_torch.envs.atari import AtariEnv
 from deep_neuroevolution_torch.models import LargeDQN, SmallDQN, VirtualBNDQN
 from deep_neuroevolution_torch.models.core import extract_patches
@@ -56,6 +57,8 @@ K1_CASES = [
     ((3, 100, 30), 0, "general"),
     ((2, 7, 1), 0, "general"),
     ((3, 0, 8), 0, "general"),
+    ((1, 3872, 256), 0, "bulk"),
+    ((7, 3872, 256), 0, "bulk"),
 ]
 
 
@@ -79,14 +82,17 @@ def test_population_linear_matches_plain(cuda_device, shape, offset, variant, dt
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,offset,variant", [K1_CASES[0], K1_CASES[1], K1_CASES[3]])
+@pytest.mark.parametrize("shape,offset,variant", [K1_CASES[i] for i in (0, 1, 3, 7, 8)])
 def test_population_linear_repeats_bit_for_bit(cuda_device, shape, offset, variant, dtype):
-    """No float atomics: two launches on the same inputs give the same y."""
+    """No float atomics: launches on the same inputs give the same y. At
+    B = 1, 4 and 7 a ring stage is refilled while few blocks hold it, where
+    a release without the proxy fence showed (K3, csrc/bulk_ring.cuh), so
+    those repeat ten times."""
     x, W = _k1_inputs(*shape, cuda_device, dtype, offset)
-    y1 = population_linear(x, W)
-    y2 = population_linear(x, W)
+    first = population_linear(x, W)
+    ys = [population_linear(x, W) for _ in range(10 if shape[0] < 8 else 1)]
     torch.cuda.synchronize()
-    assert torch.equal(y1, y2)
+    assert all(torch.equal(first, y) for y in ys)
 
 
 @pytest.mark.parametrize("B", [0, 1, 300, 1000])
@@ -207,26 +213,153 @@ def test_large_dqn_fused_repeats_bit_for_bit(cuda_device, B):
     assert torch.equal(y1, y2)
 
 
+def _k5_args(cls, dtype, B, device):
+    kw = {"forward_impl": "split"} if cls is LargeDQN else {}
+    model = cls(num_actions=4, compute_dtype=dtype, conv_impl="fused", **kw)
+    parts, _ = model.prepare_batch_params((_genomes(model, B, B, device), None))
+    return model, model.conv_chain_args(parts, _frames(B, B, device))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("cls", [SmallDQN, LargeDQN])
-@pytest.mark.parametrize("B", [1, 5, 256])
+@pytest.mark.parametrize("B", [1, 5, 7, 128, 256])
 def test_conv_chain_matches_plain(cuda_device, B, cls, dtype):
     """K5 against its plain version on the card: float32 within 1e-5·max|x|
     (sums in another order), bfloat16 within 1e-3·max|x| (the roundings of
-    the intermediates kept, as at K3)."""
-    kw = {"forward_impl": "split"} if cls is LargeDQN else {}
-    model = cls(num_actions=4, compute_dtype=dtype, conv_impl="fused", **kw)
-    parts, _ = model.prepare_batch_params((_genomes(model, B, B, cuda_device), None))
-    args = model.conv_chain_args(parts, _frames(B, B, cuda_device))
+    the intermediates kept, as at K3; the tensor cores' order stays inside,
+    TestCardTolerance in test_torch_dqn.py). B = 128 and 256 give the
+    persistent grid one and two members a block, 1 and 7 few blocks."""
+    model, args = _k5_args(cls, dtype, B, cuda_device)
     before = fk.dqn_conv_chain_fused.launches
+    before_b = fk.dqn_conv_chain_fused.launches_by_batch.get(B, 0)
     y = fk.dqn_conv_chain_fused(*args)
     ref = fk.dqn_conv_chain_plain(*args)
     torch.cuda.synchronize()
     assert fk.dqn_conv_chain_fused.launches == before + 1
+    assert fk.dqn_conv_chain_fused.launches_by_batch[B] == before_b + 1
     assert y.shape == (B, 121, model.LAYERS[-1][1]) and y.dtype == torch.float32
     tol = (1e-5 if dtype == "float32" else 1e-3) * float(ref.abs().max())
     print(f"K5 {cls.__name__} {dtype} B={B}: max abs err {float((y - ref).abs().max())} (tol {tol})")
     torch.testing.assert_close(y, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cls", [SmallDQN, LargeDQN])
+@pytest.mark.parametrize("B", [1, 7, 256])
+def test_conv_chain_repeats_bit_for_bit(cuda_device, B, cls, dtype):
+    """Every sum of K5 runs in a fixed order: ten launches on the same
+    inputs give the same activations, bit for bit (at B = 1 and 7 a stage
+    is refilled while the block still works on its member)."""
+    _, args = _k5_args(cls, dtype, B, cuda_device)
+    first = fk.dqn_conv_chain_fused(*args)
+    ys = [fk.dqn_conv_chain_fused(*args) for _ in range(10)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, y) for y in ys)
+
+
+@pytest.mark.parametrize("seed", range(100, 112))
+def test_conv_chain_large_bf16_over_seeds(cuda_device, seed):
+    """bf16 LargeDQN K5 against its plain version at B = 64 within
+    1e-3·max|x|, over the twelve seeds (genomes and frames drawn on the
+    card) on which the tensor cores' order alone read up to 1.21 of the
+    limit, one x1 rounding flipping more of x2, before the near ties were
+    recomputed as sequential chains."""
+    B = 64
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    model = LargeDQN(num_actions=4, compute_dtype="bfloat16", conv_impl="fused", forward_impl="split")
+    th = torch.randn((B, model.num_params), generator=gen, device=cuda_device) * model.scale_by(
+        model.scale_style, cuda_device)
+    parts, _ = model.prepare_batch_params((th, None))
+    args = model.conv_chain_args(parts, torch.rand((B, 84, 84, 4), generator=gen, device=cuda_device))
+    y = fk.dqn_conv_chain_fused(*args)
+    ref = fk.dqn_conv_chain_plain(*args)
+    torch.cuda.synchronize()
+    tol = 1e-3 * float(ref.abs().max())
+    print(f"K5 LargeDQN bfloat16 B={B} seed {seed}: max abs err {float((y - ref).abs().max())} (tol {tol})")
+    torch.testing.assert_close(y, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cls", [SmallDQN, LargeDQN])
+def test_conv_chain_on_engine_frames(cuda_device, cls, dtype):
+    """K5 on frames from the ToyCatch engine (mostly blank, so patches and
+    their near ties repeat) and GA children (first-generation genomes plus
+    one 0.002 mutation, so the biases are not 0), B = 128: against its
+    plain version within 1e-5·max|x| (float32) or 1e-3·max|x| (bfloat16),
+    and a second launch bit for bit."""
+    B = 128
+    env = AtariEnv("toy", batch_size=16, num_threads=2)
+    try:
+        frames = collect_ref_batch_host(env, 9, cuda_device, batch_size=B)
+    finally:
+        env.close()
+    kw = {"forward_impl": "split"} if cls is LargeDQN else {}
+    model = cls(num_actions=4, compute_dtype=dtype, conv_impl="fused", **kw)
+    th = _genomes(model, B, 9, cuda_device)
+    th = th + 0.002 * torch.randn(th.shape, generator=torch.Generator().manual_seed(10)).to(cuda_device)
+    parts, _ = model.prepare_batch_params((th, None))
+    args = model.conv_chain_args(parts, frames)
+    y = fk.dqn_conv_chain_fused(*args)
+    ref = fk.dqn_conv_chain_plain(*args)
+    again = fk.dqn_conv_chain_fused(*args)
+    torch.cuda.synchronize()
+    tol = (1e-5 if dtype == "float32" else 1e-3) * float(ref.abs().max())
+    print(f"K5 {cls.__name__} {dtype} engine frames B={B}: max abs err {float((y - ref).abs().max())} (tol {tol})")
+    torch.testing.assert_close(y, ref, rtol=0, atol=tol)
+    assert torch.equal(y, again)
+
+
+def _sequential(a, w):
+    """a · w ([B, M, K] × [B, K, N]) as bf16 K5 recomputes a near tie: a
+    float32 chain in k order from 0. a and w hold bf16 values, so each
+    product is exact in float32 and each add rounds once, as an FMA does."""
+    out = torch.zeros(a.shape[0], a.shape[1], w.shape[2], device=a.device)
+    for k in range(a.shape[2]):
+        out = out + a[..., k:k + 1] * w[:, k:k + 1, :]
+    return out
+
+
+MIDPOINT = 1.0 + 2.0 ** -8  # halfway between the bf16 values 1 and 1 + 2^-7
+
+
+def k5_all_ties_case(cls, B, device):
+    """bf16 K5 operands on which every value of x1, and every value of the
+    LargeDQN's x2 clear of the padding, lies within a few float32 ulps of a
+    bf16 rounding midpoint, so each conv notes thousands of near ties, more
+    than K5's list holds (512): every patch row of a member is its frame's
+    centre patch, so a channel's sum repeats at all 441 positions (x2's at
+    the 81 positions whose taps all lie inside x1), and each bias puts that
+    sum on MIDPOINT. Returns the args and the output the sequential chains
+    give, which K5 must match once it recomputes every value of the conv."""
+    _, args = _k5_args(cls, "bfloat16", B, device)
+    row = args[0][:, 220:221]  # the centre patch, (10, 10)
+    p1, w1, w2 = row.expand(-1, 441, -1).contiguous(), args[1].float(), args[3].float()
+    b1 = (MIDPOINT - _sequential(row.float(), w1).double()).float()
+    x1 = torch.relu(_sequential(p1.float(), w1) + b1).to(torch.bfloat16).float()
+    x1p = extract_patches(x1.reshape(B, 21, 21, -1), 4, 2).reshape(B, 121, -1)
+    if cls is SmallDQN:
+        return [p1, args[1], b1, args[3], args[4]], torch.relu(torch.bmm(x1p, w2) + args[4])
+    b2 = (MIDPOINT - _sequential(x1p[:, 60:61], w2).double()).float()  # (5, 5): every tap inside x1
+    x2 = torch.relu(_sequential(x1p, w2) + b2).to(torch.bfloat16).float()
+    x2p = extract_patches(x2.reshape(B, 11, 11, -1), 3, 1).reshape(B, 121, -1)
+    out = torch.relu(torch.bmm(x2p, args[5].float()) + args[6])
+    return [p1, args[1], b1, args[3], b2, args[5], args[6]], out
+
+
+@pytest.mark.parametrize("cls", [SmallDQN, LargeDQN])
+def test_conv_chain_recomputes_every_value_past_the_tie_list(cuda_device, cls):
+    """When a conv notes more near ties than K5's list holds, K5 recomputes
+    every value of that conv as the sequential chain: on k5_all_ties_case
+    (tests/test_torch_dqn.py checks on the CPU that the tensor cores' order
+    rounds far more than 512 of its values apart from the chain) the output
+    matches the chains' within 1e-5·max|x|, the float32 limit; a value left
+    with the tensor cores' rounding moves it by about 1e-3·max."""
+    args, want = k5_all_ties_case(cls, 3, cuda_device)
+    y = fk.dqn_conv_chain_fused(*args)
+    torch.cuda.synchronize()
+    tol = 1e-5 * float(want.abs().max())
+    print(f"K5 {cls.__name__} bfloat16 all ties: max abs err {float((y - want).abs().max())} (tol {tol})")
+    torch.testing.assert_close(y, want, rtol=0, atol=tol)
 
 
 def test_fused_wrappers_reject_misaligned_inputs(cuda_device):

@@ -251,6 +251,71 @@ def _k3_head(ops, x3, acc, num_actions):
     return (torch.bmm(h[:, None], ops["wo"].to(acc))[:, 0] + ops["bo"][:, 0].to(acc))[:, :num_actions]
 
 
+def _bmm_sequential(a, w):
+    """a · w as a sequential float32 chain in k order from 0 (K5's first kernel, and
+    cuBLAS's order for the plain version at B = 128 and 256): each bf16
+    product is exact in float32, each add rounded."""
+    out = torch.zeros(a.shape[0], a.shape[1], w.shape[2])
+    for k in range(a.shape[2]):
+        out = out + a[..., k:k + 1] * w[:, k:k + 1, :]
+    return out
+
+
+K5_TIE_ULPS = 512  # csrc/dqn_conv_chain.cu kTieUlps
+K5_MAX_TIES = 512  # csrc/dqn_conv_chain.cu kMaxTies
+
+
+def _near_tie(v):
+    """csrc/dqn_conv_chain.cu's Ties::note: a positive float32 within
+    K5_TIE_ULPS of a bf16 rounding midpoint."""
+    lo = (v.view(torch.int32) & 0xFFFF).to(torch.int64)
+    return (v > 0) & ((lo - 0x8000).abs() < K5_TIE_ULPS)
+
+
+def _k5_recompute(tc, seq):
+    """Which sums bf16 K5 rounds, per member: the sequential chain's where
+    the tensor-core value is a near tie, or everywhere once a member's conv
+    notes more than its list holds (K5_MAX_TIES); else the tensor cores'."""
+    ties = _near_tie(tc)
+    every = ties.sum(dim=(1, 2), keepdim=True) > K5_MAX_TIES
+    return torch.where(ties | every, seq, tc)
+
+
+def _first_ties_only(tc, seq):
+    """A kernel whose tie list dropped every entry past K5_MAX_TIES: only a
+    member's first K5_MAX_TIES near ties, in (p, co) order, take the chain."""
+    ties = _near_tie(tc).flatten(1)
+    first = ties & (ties.cumsum(1) <= K5_MAX_TIES)
+    return torch.where(first.view_as(tc), seq, tc)
+
+
+def _k5_args(model, B, seed):
+    """bf16 K5's arguments for B members of ``model`` (a class name) at
+    _thetas's scale and random frames."""
+    tm = getattr(tdqn, model)(num_actions=4, compute_dtype="bfloat16", conv_impl="fused",
+                              **({"forward_impl": "split"} if model == "LargeDQN" else {}))
+    parts, _ = tm.prepare_batch_params((torch.from_numpy(_thetas(tm, B, seed)), None))
+    return [a for a in tm.conv_chain_args(parts, torch.from_numpy(_obs(B, seed))) if a is not None]
+
+
+def _k5_kernel_order(args, recompute):
+    """bf16 K5's output emulated: each conv's product in the tensor cores'
+    order (_bmm_in_chunks); x1 (and x2) relu'd and rounded to bf16 from
+    ``recompute(tc, seq)``, which picks per value between the tensor-core
+    sum and the sequential chain's; the last conv float32, unrounded."""
+    convs = list(zip(args[1::2], args[2::2]))
+    B = args[0].shape[0]
+    x = args[0].float()
+    for i, (w, b) in enumerate(convs):
+        if i:
+            hw, k, s = ((21, 4, 2), (11, 3, 1))[i - 1]
+            x = t_patches(x.reshape(B, hw, hw, -1), k, s).reshape(B, 121, -1)
+        v = _bmm_in_chunks(x, w.float()) + b
+        if i == len(convs) - 1:
+            return torch.relu(v)
+        x = torch.relu(recompute(v, _bmm_sequential(x, w.float()) + b)).to(torch.bfloat16).float()
+
+
 class TestCardTolerance:
     """The limit that chip_smoke.py and tests/test_torch_cuda.py hold K3 and
     bf16 K5 to, 1e-3·max|out|, catches a kernel that drops the bf16
@@ -300,6 +365,100 @@ class TestCardTolerance:
         dropped = float((_k3_head(ops, x3, torch.float32, num_actions) - ref).abs().max()) / top
         print(f"K3-{num_actions}: steps of 16 {chunked:.3g}·max, the same with dropped roundings {dropped:.3g}·max")
         assert chunked < 1e-3 < dropped
+
+    @pytest.mark.parametrize("model", ["SmallDQN", "LargeDQN"])
+    def test_k5_tensor_core_order_stays_inside_the_limit(self, model):
+        """bf16 K5 runs K3's tensor-core stages: each product in chunks of
+        32 k, steps of 16 in the kernel's lane order, each step summed first
+        and the steps in order. The SmallDQN's conv2 (16 channels a tap)
+        takes two taps a chunk, which in (i, j, c) order are the chunk's 32
+        consecutive k, so the same emulation holds. With K5's rounding
+        points that order stays under 1e-3·max|x|; dropped roundings exceed
+        it. The kernel as built (near ties recomputed as sequential chains,
+        _k5_kernel_order) stays under it against the plain version and
+        against the sequential chains that the card's plain version sums at
+        B ≥ 128. The order alone is not enough: on some inputs (seed 60 at
+        B = 4) it flips x1 roundings that flip more of the LargeDQN's x2,
+        past the limit against the chains, as on the card."""
+        args = _k5_args(model, 4, 9)
+        convs = list(zip(args[1::2], args[2::2]))
+        ref = tfk.dqn_conv_chain_plain(*args)
+        top = float(ref.abs().max())
+        chunked = float((_chain(args[0], convs, torch.float32, True, mm=_bmm_in_chunks) - ref).abs().max()) / top
+        dropped = float((_chain(args[0], convs, torch.float32, False, mm=_bmm_in_chunks) - ref).abs().max()) / top
+        kernel = _k5_kernel_order(args, _k5_recompute)
+        seq = _chain(args[0], convs, torch.float32, True, mm=_bmm_sequential)
+        vs_plain = float((kernel - ref).abs().max()) / top
+        vs_seq = float((kernel - seq).abs().max()) / float(seq.abs().max())
+        print(f"K5-{model}: steps of 16 {chunked:.3g}·max, the same with dropped roundings {dropped:.3g}·max; "
+              f"the kernel's order {vs_plain:.3g}·max against the plain version, {vs_seq:.3g}·max against the chains")
+        assert chunked < 1e-3 < dropped
+        assert vs_plain < 1e-3 and vs_seq < 1e-3
+        if model == "LargeDQN":
+            args = _k5_args(model, 4, 60)
+            seq = _chain(args[0], list(zip(args[1::2], args[2::2])), torch.float32, True, mm=_bmm_sequential)
+            top = float(seq.abs().max())
+            alone = float((_k5_kernel_order(args, lambda tc, sq: tc) - seq).abs().max()) / top
+            fixed = float((_k5_kernel_order(args, _k5_recompute) - seq).abs().max()) / top
+            print(f"K5-{model} seed 60 against the chains: the order alone {alone:.3g}·max, near ties recomputed "
+                  f"{fixed:.3g}·max")
+            assert fixed < 1e-5 and alone > 1e-3
+
+    @pytest.mark.parametrize("model", ["SmallDQN", "LargeDQN"])
+    def test_k5_near_ties_round_as_the_sequential_chain(self, model):
+        """bf16 K5 recomputes each bf16 intermediate whose tensor-core
+        value lies within 512 float32 ulps of a rounding midpoint as a
+        sequential float32 chain. On the card one flipped x1 rounding moved
+        later sums enough to flip more of x2 and took the LargeDQN past the
+        1e-3·max limit (B=5). Emulated here on conv1: the tensor-core order
+        alone rounds some values apart from the chain; with the near ties
+        recomputed every rounding matches it, and the ties are a few
+        percent of the values, inside the kernel's list of 512 a conv
+        (past which it recomputes every value)."""
+        B = 4
+        args = _k5_args(model, B, 11)
+        p1, w1, b1 = args[0].float(), args[1].float(), args[2]
+        seq = _bmm_sequential(p1, w1) + b1
+        tc = _bmm_in_chunks(p1, w1) + b1
+        ties = _near_tie(tc)
+        fixed = _k5_recompute(tc, seq)
+
+        def rounded(v):
+            return torch.relu(v).to(torch.bfloat16)
+
+        apart = int((rounded(tc) != rounded(seq)).sum())
+        after = int((rounded(fixed) != rounded(seq)).sum())
+        share = float(ties.sum()) / float((tc > 0).sum())
+        print(f"K5-{model} conv1: {apart} roundings apart, {after} after the ties, ties {share:.3%} of the positive values")
+        assert apart > 0 and after == 0
+        assert share < 0.03 and int(ties.sum(dim=(1, 2)).max()) <= K5_MAX_TIES
+
+    @pytest.mark.parametrize("model", ["SmallDQN", "LargeDQN"])
+    def test_k5_tie_list_overflow_case(self, model):
+        """tests/test_torch_cuda.py's k5_all_ties_case, which the card test
+        test_conv_chain_recomputes_every_value_past_the_tie_list holds K5
+        to within 1e-5·max|x|, emulated in the tensor cores' order: every
+        member's x1 notes far more near ties than K5's list holds, and the
+        tensor cores' order rounds at least one whole channel (441 values)
+        apart from the chains, so a kernel that recomputed only its first
+        512 would miss the case's output by far more than that limit;
+        recomputing every value meets it."""
+        from test_torch_cuda import k5_all_ties_case
+
+        cls = getattr(tdqn, model)
+        args, want = k5_all_ties_case(cls, 3, torch.device("cpu"))
+        p1, w1, b1 = args[0].float(), args[1].float(), args[2]
+        tc = _bmm_in_chunks(p1, w1) + b1
+        seq = _bmm_sequential(p1, w1) + b1
+        noted = _near_tie(tc).sum(dim=(1, 2))
+        apart = (torch.relu(tc).to(torch.bfloat16) != torch.relu(seq).to(torch.bfloat16)).sum(dim=(1, 2))
+        top = float(want.abs().max())
+        first_512 = float((_k5_kernel_order(args, _first_ties_only) - want).abs().max()) / top
+        every = float((_k5_kernel_order(args, _k5_recompute) - want).abs().max()) / top
+        print(f"K5-{model} all ties: x1 notes {noted.tolist()}, rounds {apart.tolist()} apart; the first 512 "
+              f"recomputed {first_512:.3g}·max, every value {every:.3g}·max")
+        assert bool((noted > K5_MAX_TIES).all()) and bool((apart >= 441).all())
+        assert every < 1e-5 < 1e-4 < first_512
 
 
 class TestWrapperChecks:
