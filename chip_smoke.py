@@ -12,9 +12,14 @@ ends:
 2. kernel K1 (population_linear) against its plain PyTorch version, float32
    and bfloat16, at the population fc's shapes (B=256, 128 and the eval
    episodes' 4), each on the bulk variant, beside one ``torch.bmm``;
-3. kernel K2 (noise_gradient) against its plain version at the ES
-   gradient's shape, with unaligned offsets and one slice that ends at the
-   table's last element;
+3. kernel K2 (noise_gradient) against its plain version at the main
+   path's shape (256 pairs on a 25M-float table) and at 2500 and 256 pairs
+   on the reference's 250M-float table, with unaligned offsets and one
+   slice that ends at the table's last element; then, through its C entry
+   point, a bit-for-bit repeat and its time back-to-back and in a CUDA
+   graph, beside its bound, an L2 floor (B·D·4 bytes over the L2 read
+   rate that a probe measures in the same phase) and, where it reads the
+   table's slices as a view, one ``F.embedding_bag`` call;
 4. one ES generation of configurations/es_atari_config.json through the
    port's CLI (``main train``) on the ToyCatch engine at the model's full
    width, with the population, cutoff and noise table cut to smoke size.
@@ -287,17 +292,86 @@ def union_bytes(idx, dim: int) -> int:
     return covered * 4
 
 
-def check_noise_gradient(device, dim: int) -> dict:
+def l2_read_rate(device, mbytes: int = 24, reps: int = 40) -> dict:
+    """The rate at which L2 delivers bytes to the SMs: four blocks an SM read
+    a buffer of ``mbytes`` MB (it fits the 50 MB L2) ``reps`` times over
+    with 16-byte loads that bypass L1 (csrc/noise_gradient.cu
+    ``nevo_l2_read_probe``), timed by CUDA events after a warm-up."""
     import torch
 
+    from deep_neuroevolution_torch.ops import _cuda_build
+
+    lib = _cuda_build.load()
+    n16 = mbytes * 2**20 // 16
+    buf = torch.ones(n16 * 4, device=device)
+    grid = 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    out = torch.empty(grid * 512, device=device)
+    stream = _cuda_build.current_stream(device)
+
+    def call():
+        err = lib.nevo_l2_read_probe(buf.data_ptr(), n16, reps, grid, out.data_ptr(), stream)
+        _cuda_build.check(lib, err, "nevo_l2_read_probe")
+
+    warm(call, 0.3)
+    ms = cuda_ms(call, 10)
+    require(float(out.sum()) > 0, "the L2 probe read nothing")
+    return dict(buffer_mb=mbytes, reps=reps, ms=ms, bytes_per_s=n16 * 16 * reps / ms * 1e3)
+
+
+def embedding_bag_ms(table, idx, w, dim: int, ref) -> tuple:
+    """(ms, note): ``F.embedding_bag`` with ``per_sample_weights`` over the
+    table's every slice, ``table.unfold(0, dim, 1)`` (a view, no copy),
+    computes g in one call if the library reads the view as it stands. The
+    call is timed only if it agrees with ``ref`` and its peak memory stays
+    under a few copies of g; else ms is None and note says why."""
+    import torch
+    import torch.nn.functional as F
+
+    def call():
+        return F.embedding_bag(idx[None].long(), table.unfold(0, dim, 1), mode="sum", per_sample_weights=w[None])[0]
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        g = call()
+        torch.cuda.synchronize()
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as e:  # the library copies the view
+        torch.cuda.empty_cache()
+        return None, f"refused: {str(e).splitlines()[0][:160]}"
+    extra = torch.cuda.max_memory_allocated() - base
+    err = float((g - ref).abs().max())
+    if extra > 8 * dim * 4 or err > 1e-5 * float(ref.abs().max()):
+        return None, f"ran with {extra} bytes of scratch and max abs err {err}"
+    return cuda_ms(call, 5), f"one call, {extra} bytes of scratch"
+
+
+# K2 at es_atari_config.json's 2500 pairs and at 256 pairs on the
+# reference's 250M-float table, and at the main path's own shape, phase 4's
+# 256 pairs on its 25M-float table
+K2_CASES = ((256, 25_000_000), (2500, 250_000_000), (256, 250_000_000))
+
+
+def check_noise_gradient(device, dim: int) -> dict:
+    """K2 at each (pairs, table) of ``K2_CASES``, offsets uniform with one
+    slice that ends at the table's last element and an odd one: once
+    through the wrapper against its plain version, then through the C entry
+    point (the wrapper's range check syncs the host), which must repeat the
+    wrapper's g bit for bit, timed back-to-back and in a CUDA graph. Returns
+    the main path's shape's numbers, the others under ``other_shapes``."""
+    import torch
+
+    from deep_neuroevolution_torch.ops import _cuda_build
     from deep_neuroevolution_torch.ops.noise_gradient import noise_gradient, noise_gradient_plain
 
+    l2 = l2_read_rate(device)
+    print("l2_probe " + json.dumps(l2), flush=True)
+    lib = _cuda_build.load()
     gen = torch.Generator(device=device).manual_seed(2)
-    count = 250_000_000  # the reference's table length, drawn on the card
-    table = torch.randn(count, generator=gen, device=device)
-    out = {}
-    # B=2500 pairs is es_atari_config.json's population; B=256 is phase 4's
-    for B in (2500, 256):
+    big = torch.randn(max(n for _, n in K2_CASES), generator=gen, device=device)  # drawn on the card
+    rows = []
+    for B, count in K2_CASES:
+        table = big[:count]  # a view: the first `count` floats
         idx = torch.randint(0, count - dim + 1, (B,), generator=gen, device=device, dtype=torch.int32)
         idx[0] = count - dim  # this slice ends at table[count - 1]
         idx[1] = 1  # unaligned
@@ -308,20 +382,35 @@ def check_noise_gradient(device, dim: int) -> dict:
         err = float((g - ref).abs().max())
         tol = 1e-5 * float(ref.abs().max())  # float32 sums in another order
         require(bool(torch.isfinite(g).all()), "noise_gradient returned non-finite values")
-        require(err <= tol, f"noise_gradient B={B}: max abs err {err} > {tol}")
-        ms = cuda_ms(lambda: noise_gradient(table, idx, w, dim), 5)
-        plain_ms = cuda_ms(lambda: noise_gradient_plain(table, idx, w, dim), 3, warmup=1)
+        require(err <= tol, f"noise_gradient B={B} table={count}: max abs err {err} > {tol}")
+        out = torch.empty_like(g)
+
+        def entry():
+            e = lib.nevo_noise_gradient(table.data_ptr(), idx.data_ptr(), w.data_ptr(), B, dim, out.data_ptr(),
+                                        _cuda_build.current_stream(device))  # graph_ms captures on a side stream
+            _cuda_build.check(lib, e, "nevo_noise_gradient")
+
+        entry()
+        torch.cuda.synchronize()
+        require(torch.equal(out, g), f"noise_gradient B={B} table={count}: a second launch differs")
+        warm(entry)
+        ms = cuda_ms(entry, 20)
         # least bytes: the table elements the slices cover, read once, plus
         # the offsets, the weights and g
         nbytes = union_bytes(idx.cpu(), dim) + B * 8 + dim * 4
         bound_ms, bound_by = bound(nbytes, 2 * B * dim, "float32")
-        row = dict(B=B, D=dim, table=count, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms, library_note = embedding_bag_ms(table, idx, w, dim, ref)
+        row = dict(B=B, D=dim, table=count, max_abs_err=err, tol=tol, ms=ms, graph_ms=graph_ms(entry),
+                   wrapper_ms=cuda_ms(lambda: noise_gradient(table, idx, w, dim), 5),
+                   plain_ms=cuda_ms(lambda: noise_gradient_plain(table, idx, w, dim), 3, warmup=1),
+                   library_ms=library_ms, library_note=library_note, bound_ms=bound_ms, bound_by=bound_by,
+                   l2_floor_ms=B * dim * 4 / l2["bytes_per_s"] * 1e3,
                    streamed_slices_ms=B * dim * 4 / PEAK_BYTES_PER_S * 1e3)
         print("noise_gradient " + json.dumps(row), flush=True)
-        out[B] = row
-    del table
-    return out[2500]
+        rows.append(row)
+        del g, ref, out
+    del big
+    return dict(rows[0], l2_bytes_per_s=l2["bytes_per_s"], other_shapes=rows[1:])
 
 
 def run_generation(device) -> dict:
@@ -1041,7 +1130,11 @@ def main() -> int:
         entry("population_linear", "deep_neuroevolution_torch/csrc/population_linear.cu",
               "deep_neuroevolution_tpu/ops/pallas_forward.py:59", es_launches, k1, variant=k1["variant"]),
         entry("noise_gradient", "deep_neuroevolution_torch/csrc/noise_gradient.cu",
-              "deep_neuroevolution_tpu/ops/pallas_kernels.py:120", es_launches, k2),
+              "deep_neuroevolution_tpu/ops/pallas_kernels.py:120", es_launches, k2, B=k2["B"],
+              table=k2["table"], graph_ms=k2["graph_ms"], l2_floor_ms=k2["l2_floor_ms"],
+              library_note=k2["library_note"],
+              other_shapes=[{k: r[k] for k in ("B", "table", "ms", "graph_ms", "bound_ms", "l2_floor_ms",
+                                               "plain_ms", "library_ms", "max_abs_err")} for r in k2["other_shapes"]]),
         entry("large_dqn_fused_scores", "deep_neuroevolution_torch/csrc/large_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:298", ga_launches, k3_row,
               graph_ms=k3_row["graph_ms"], split_ms=k3_row["split_ms"]),

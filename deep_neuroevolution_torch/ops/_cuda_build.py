@@ -116,6 +116,10 @@ def load() -> ctypes.CDLL:
     lib.nevo_population_linear_bulk_occupancy.restype = i32
     lib.nevo_noise_gradient.argtypes = [vp, vp, vp, i32, i64, vp, vp]
     lib.nevo_noise_gradient.restype = i32
+    lib.nevo_noise_gradient_geometry.argtypes = [i64, i32, vp]
+    lib.nevo_noise_gradient_geometry.restype = None
+    lib.nevo_l2_read_probe.argtypes = [vp, i64, i32, i32, vp, vp]
+    lib.nevo_l2_read_probe.restype = i32
     lib.nevo_large_dqn_fused.argtypes = [vp] * 12 + [i32, vp]
     lib.nevo_large_dqn_fused.restype = i32
     lib.nevo_dqn_conv_chain.argtypes = [vp] * 8 + [i32, i32, i32, i32, i32, vp]

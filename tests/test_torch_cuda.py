@@ -113,6 +113,108 @@ def test_noise_gradient_matches_plain(cuda_device, B):
     torch.testing.assert_close(g, ref, rtol=0, atol=1e-5 * max(1.0, float(ref.abs().max())))
 
 
+def _k2_offsets(name, N, D, B, gen):
+    """Offsets of one adversarial kind, each in [0, N - D]."""
+    top = N - D
+    if name == "ends":  # the first and the last valid offset
+        o = torch.randint(0, 2, (B,), generator=gen) * top
+    elif name == "odd":
+        o = torch.randint(0, top // 2, (B,), generator=gen) * 2 + 1
+    elif name == "equal":
+        o = torch.full((B,), top // 3 | 1)
+    elif name == "adjacent":
+        o = top // 2 + torch.arange(B)
+    else:
+        o = torch.randint(0, top + 1, (B,), generator=gen)
+        o[:3] = torch.tensor([0, top, 1])
+    return o.clamp(0, top).to(torch.int32)
+
+
+# (offsets, N, D, B): D not a multiple of 4, D below a block's range of
+# outputs, D of two rounds of tiles (132 · 8184 < D), B above the sort
+# capacity (8192), B = 2500 at the ES model's D
+K2_CASES = [
+    ("ends", 200_003, 70_001, 300),
+    ("odd", 200_003, 70_003, 300),
+    ("equal", 200_003, 70_002, 300),
+    ("adjacent", 200_003, 70_001, 300),
+    ("uniform", 200_003, 70_003, 2500),
+    ("ends", 1001, 5, 64),
+    ("ends", 1003, 3, 64),
+    ("adjacent", 1002, 1, 64),
+    ("uniform", 1_300_001, 1_200_001, 64),
+    ("uniform", 400_001, 20_001, 8192 + 777),
+    ("uniform", 4_000_000, 1_004_852, 2500),
+]
+
+
+@pytest.mark.parametrize("name,N,D,B", K2_CASES)
+def test_noise_gradient_adversarial_offsets(cuda_device, name, N, D, B):
+    """The kernel against its plain version on each kind of offset: float32
+    sums in the sorted order, within 1e-5 of max|g|. All-equal offsets make
+    g = (Σw)·slice, so their weights are positive (no cancellation in Σw)."""
+    gen = torch.Generator().manual_seed(N + D + B)
+    table = torch.randn(N, generator=gen).to(cuda_device)
+    idxs = _k2_offsets(name, N, D, B, gen).to(cuda_device)
+    w = (torch.rand(B, generator=gen) if name == "equal" else torch.randn(B, generator=gen)).to(cuda_device)
+    launches = noise_gradient.launches
+    g = noise_gradient(table, idxs, w, D)
+    ref = noise_gradient_plain(table, idxs, w, D)
+    torch.cuda.synchronize()
+    assert noise_gradient.launches == launches + 1
+    tol = 1e-5 * float(ref.abs().max())
+    print(f"K2 {name} N={N} D={D} B={B}: max abs err {float((g - ref).abs().max()):.3g} (tol {tol:.3g})")
+    torch.testing.assert_close(g, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("case", [K2_CASES[i] for i in (4, 5, 9, 10)])
+def test_noise_gradient_repeats_bit_for_bit(cuda_device, case):
+    """A fixed sum order and no atomics: launches on the same inputs give
+    the same g, ties among offsets included."""
+    name, N, D, B = case
+    gen = torch.Generator().manual_seed(B)
+    table = torch.randn(N, generator=gen).to(cuda_device)
+    idxs = _k2_offsets(name, N, D, B, gen)
+    idxs[B // 2:] = idxs[:B - B // 2].clone()  # every offset twice
+    idxs, w = idxs.to(cuda_device), torch.randn(B, generator=gen).to(cuda_device)
+    first = noise_gradient(table, idxs, w, D)
+    assert all(torch.equal(first, noise_gradient(table, idxs, w, D)) for _ in range(5))
+
+
+def test_noise_gradient_takes_a_misaligned_table(cuda_device):
+    """The loads are scalar: a view of the table that starts off a 16-byte
+    boundary launches the kernel and gives the plain version's g."""
+    table = torch.randn(10_001, device=cuda_device)
+    idxs = torch.tensor([0, 7, 8_999], dtype=torch.int32, device=cuda_device)  # 8999 + 999: the last view's end
+    w = torch.tensor([1.0, -2.0, 0.5], device=cuda_device)
+    for start in (1, 2, 3):
+        view = table[start:]
+        launches = noise_gradient.launches
+        g = noise_gradient(view, idxs, w, 999)
+        torch.cuda.synchronize()
+        assert noise_gradient.launches == launches + 1
+        ref = noise_gradient_plain(view, idxs, w, 999)
+        torch.testing.assert_close(g, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_noise_gradient_geometry_matches_the_plan(cuda_device):
+    """ops/noise_gradient.py's ``plan`` and constants (which the CPU tests
+    check) are the geometry the C entry point launches."""
+    import ctypes
+
+    from deep_neuroevolution_torch.ops import _cuda_build
+    from deep_neuroevolution_torch.ops import noise_gradient as k2
+
+    lib = _cuda_build.load()
+    out = (ctypes.c_longlong * 8)()
+    for D in (1, 5, 1000, 70_001, 1_004_852, 1_200_001, 3_000_001):
+        for sms in (132, 114, 3):
+            lib.nevo_noise_gradient_geometry(D, sms, out)
+            p = k2.plan(1, D, sms)
+            want = [p.tile, p.tiles, p.grid, p.rounds, k2.SORT_CAP, k2.TILE_MAX, k2.THREADS, k2.PER]
+            assert list(out) == want, (D, sms)
+
+
 def test_vbn_forward_card_matches_cpu(cuda_device):
     """The population forward with K1 against the CPU's plain forward, from
     the same θ: float32, within 1e-3 of max|score|; equal argmax away from
