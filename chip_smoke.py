@@ -55,7 +55,19 @@ ends:
 11. the same with ``forward_impl='fused'`` and K6;
 12. the same with ``forward_impl='split'`` (K1), so that the three routes'
    generations are timed alike, each after a warm-up of the process.
-   Each of phases 10-12 also times its trainer's eval episodes alone.
+   Each of phases 10-12 also times its trainer's eval episodes alone;
+13. the reference's 250M-float noise table, built once for phases 14-15;
+14. one ES generation of configurations/maze_es.json (Hard Maze,
+   ContinuousMLP) at its full size, through the Python API: population
+   512, 400 steps, 8 eval episodes. K2's counter must move, every return
+   lie in [−(the maze's diagonal), 0], a whole episode of 8 members
+   recorded on the card match the CPU's observe, forward and step, step by
+   step (teacher-forced), and the generation's rollout through CUDA graphs
+   repeat the eager loop bit for bit (both timed); then K2 is checked and
+   timed on the generation's own offsets and weights (256 pairs, D = 498);
+15. the same for configurations/es_gym_config.json (CartPole,
+   SimpleClassifier): population 5000, cutoff 5000, graphs against eager;
+   K2 at 2500 pairs, D = 386.
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -322,8 +334,9 @@ def embedding_bag_ms(table, idx, w, dim: int, ref) -> tuple:
     """(ms, note): ``F.embedding_bag`` with ``per_sample_weights`` over the
     table's every slice, ``table.unfold(0, dim, 1)`` (a view, no copy),
     computes g in one call if the library reads the view as it stands. The
-    call is timed only if it agrees with ``ref`` and its peak memory stays
-    under a few copies of g; else ms is None and note says why."""
+    call is timed only if it agrees with ``ref`` and its scratch memory
+    stays under a quarter of the B slices' bytes (a copy of the slices
+    would take all of them); else ms is None and note says why."""
     import torch
     import torch.nn.functional as F
 
@@ -341,7 +354,7 @@ def embedding_bag_ms(table, idx, w, dim: int, ref) -> tuple:
         return None, f"refused: {str(e).splitlines()[0][:160]}"
     extra = torch.cuda.max_memory_allocated() - base
     err = float((g - ref).abs().max())
-    if extra > 8 * dim * 4 or err > 1e-5 * float(ref.abs().max()):
+    if extra > idx.shape[0] * dim * 4 // 4 or err > 1e-5 * float(ref.abs().max()):
         return None, f"ran with {extra} bytes of scratch and max abs err {err}"
     return cuda_ms(call, 5), f"one call, {extra} bytes of scratch"
 
@@ -352,21 +365,63 @@ def embedding_bag_ms(table, idx, w, dim: int, ref) -> tuple:
 K2_CASES = ((256, 25_000_000), (2500, 250_000_000), (256, 250_000_000))
 
 
-def check_noise_gradient(device, dim: int) -> dict:
-    """K2 at each (pairs, table) of ``K2_CASES``, offsets uniform with one
-    slice that ends at the table's last element and an odd one: once
-    through the wrapper against its plain version, then through the C entry
-    point (the wrapper's range check syncs the host), which must repeat the
-    wrapper's g bit for bit, timed back-to-back and in a CUDA graph. Returns
-    the main path's shape's numbers, the others under ``other_shapes``."""
+def k2_case(device, table, idx, w, dim: int, l2_bytes_per_s: float) -> dict:
+    """K2 on one (table, offsets, weights): once through the wrapper against
+    its plain version (within 1e-5·max|g|: float32 sums in another order),
+    then through the C entry point (the wrapper's range check syncs the
+    host), which must repeat the wrapper's g bit for bit, timed back-to-back
+    and in a CUDA graph, beside the plain version, its bound, the L2 floor
+    and one ``F.embedding_bag`` call."""
     import torch
 
     from deep_neuroevolution_torch.ops import _cuda_build
     from deep_neuroevolution_torch.ops.noise_gradient import noise_gradient, noise_gradient_plain
 
+    lib = _cuda_build.load()
+    B, count = idx.shape[0], table.shape[0]
+    g = noise_gradient(table, idx, w, dim)
+    ref = noise_gradient_plain(table, idx, w, dim)
+    torch.cuda.synchronize()
+    err = float((g - ref).abs().max())
+    tol = 1e-5 * float(ref.abs().max())  # float32 sums in another order
+    require(bool(torch.isfinite(g).all()), "noise_gradient returned non-finite values")
+    require(err <= tol, f"noise_gradient B={B} D={dim} table={count}: max abs err {err} > {tol}")
+    out = torch.empty_like(g)
+
+    def entry():
+        e = lib.nevo_noise_gradient(table.data_ptr(), idx.data_ptr(), w.data_ptr(), B, dim, out.data_ptr(),
+                                    _cuda_build.current_stream(device))  # graph_ms captures on a side stream
+        _cuda_build.check(lib, e, "nevo_noise_gradient")
+
+    entry()
+    torch.cuda.synchronize()
+    require(torch.equal(out, g), f"noise_gradient B={B} D={dim} table={count}: a second launch differs")
+    warm(entry)
+    ms = cuda_ms(entry, 20)
+    # least bytes: the table elements the slices cover, read once, plus
+    # the offsets, the weights and g
+    nbytes = union_bytes(idx.cpu(), dim) + B * 8 + dim * 4
+    bound_ms, bound_by = bound(nbytes, 2 * B * dim, "float32")
+    library_ms, library_note = embedding_bag_ms(table, idx, w, dim, ref)
+    row = dict(B=B, D=dim, table=count, max_abs_err=err, tol=tol, ms=ms, graph_ms=graph_ms(entry),
+               wrapper_ms=cuda_ms(lambda: noise_gradient(table, idx, w, dim), 5),
+               plain_ms=cuda_ms(lambda: noise_gradient_plain(table, idx, w, dim), 3, warmup=1),
+               library_ms=library_ms, library_note=library_note, bound_ms=bound_ms, bound_by=bound_by,
+               l2_floor_ms=B * dim * 4 / l2_bytes_per_s * 1e3,
+               streamed_slices_ms=B * dim * 4 / PEAK_BYTES_PER_S * 1e3)
+    print("noise_gradient " + json.dumps(row), flush=True)
+    return row
+
+
+def check_noise_gradient(device, dim: int) -> dict:
+    """K2 at each (pairs, table) of ``K2_CASES`` (``k2_case``), offsets
+    uniform with one slice that ends at the table's last element and an odd
+    one. Returns the main path's shape's numbers, the others under
+    ``other_shapes``, and the L2 probe's rate."""
+    import torch
+
     l2 = l2_read_rate(device)
     print("l2_probe " + json.dumps(l2), flush=True)
-    lib = _cuda_build.load()
     gen = torch.Generator(device=device).manual_seed(2)
     big = torch.randn(max(n for _, n in K2_CASES), generator=gen, device=device)  # drawn on the card
     rows = []
@@ -376,39 +431,7 @@ def check_noise_gradient(device, dim: int) -> dict:
         idx[0] = count - dim  # this slice ends at table[count - 1]
         idx[1] = 1  # unaligned
         w = torch.randn(B, generator=gen, device=device)
-        g = noise_gradient(table, idx, w, dim)
-        ref = noise_gradient_plain(table, idx, w, dim)
-        torch.cuda.synchronize()
-        err = float((g - ref).abs().max())
-        tol = 1e-5 * float(ref.abs().max())  # float32 sums in another order
-        require(bool(torch.isfinite(g).all()), "noise_gradient returned non-finite values")
-        require(err <= tol, f"noise_gradient B={B} table={count}: max abs err {err} > {tol}")
-        out = torch.empty_like(g)
-
-        def entry():
-            e = lib.nevo_noise_gradient(table.data_ptr(), idx.data_ptr(), w.data_ptr(), B, dim, out.data_ptr(),
-                                        _cuda_build.current_stream(device))  # graph_ms captures on a side stream
-            _cuda_build.check(lib, e, "nevo_noise_gradient")
-
-        entry()
-        torch.cuda.synchronize()
-        require(torch.equal(out, g), f"noise_gradient B={B} table={count}: a second launch differs")
-        warm(entry)
-        ms = cuda_ms(entry, 20)
-        # least bytes: the table elements the slices cover, read once, plus
-        # the offsets, the weights and g
-        nbytes = union_bytes(idx.cpu(), dim) + B * 8 + dim * 4
-        bound_ms, bound_by = bound(nbytes, 2 * B * dim, "float32")
-        library_ms, library_note = embedding_bag_ms(table, idx, w, dim, ref)
-        row = dict(B=B, D=dim, table=count, max_abs_err=err, tol=tol, ms=ms, graph_ms=graph_ms(entry),
-                   wrapper_ms=cuda_ms(lambda: noise_gradient(table, idx, w, dim), 5),
-                   plain_ms=cuda_ms(lambda: noise_gradient_plain(table, idx, w, dim), 3, warmup=1),
-                   library_ms=library_ms, library_note=library_note, bound_ms=bound_ms, bound_by=bound_by,
-                   l2_floor_ms=B * dim * 4 / l2["bytes_per_s"] * 1e3,
-                   streamed_slices_ms=B * dim * 4 / PEAK_BYTES_PER_S * 1e3)
-        print("noise_gradient " + json.dumps(row), flush=True)
-        rows.append(row)
-        del g, ref, out
+        rows.append(k2_case(device, table, idx, w, dim, l2["bytes_per_s"]))
     del big
     return dict(rows[0], l2_bytes_per_s=l2["bytes_per_s"], other_shapes=rows[1:])
 
@@ -1002,6 +1025,150 @@ def check_es_route(run: dict, impl: str) -> None:
 
 
 
+
+# phases 13 and 14: the device envs' configurations, at their full size
+DEVICE_CONFIGS = {"maze": "maze_es.json", "cartpole": "es_gym_config.json"}
+
+
+def run_device_es(device, name: str, table) -> dict:
+    """One ES generation of a device-env configuration at its full size,
+    through the Python API (``config.load_experiment``, then ``train``), on
+    the reference's 250M-float table that the process built once. Records
+    K2's offsets and weights as the generation hands them over."""
+    import torch
+
+    from deep_neuroevolution_torch.algos import es
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / DEVICE_CONFIGS[name]).read_text())
+    tr = config.load_experiment(exp, device=device, noise_table=table)
+    print(f"{name}: {type(tr.env).__name__} {type(tr.model).__name__} D={tr.model.num_params} "
+          f"{json.dumps(dataclasses.asdict(tr.config))}", flush=True)
+    real, seen = es.noise_gradient, []
+
+    def recorded(table_, idxs, weights, dim):
+        seen.append((idxs.clone(), weights.clone()))
+        return real(table_, idxs, weights, dim)
+
+    es.noise_gradient = recorded
+    try:
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counters()
+    finally:
+        es.noise_gradient = real
+    print("launches " + json.dumps(launches), flush=True)
+    require(launches["noise_gradient"] == len(seen) == 1, f"{name}: K2 launched {launches['noise_gradient']} times")
+    return dict(trainer=tr, seconds=seconds, launches=launches, idx=seen[0][0], w=seen[0][1])
+
+
+def check_device_es(run: dict, name: str) -> None:
+    """The generation's outputs: finite, of the configuration's shapes, each
+    episode within the cutoff; maze returns in [−diagonal, 0] (the reward
+    is −distance to the goal at the last step), CartPole returns equal to
+    the lengths (1 a step)."""
+    import torch
+
+    tr = run["trainer"]
+    st, cutoff = tr.last_stats, tr.cutoff.tslimit
+    require(tr.iteration == 1 and bool(torch.isfinite(tr.theta).all()), f"{name}: no finite θ after a generation")
+    require(st.returns.shape == (tr.config.population_size // 2, 2), f"{name}: returns {st.returns.shape}")
+    require(st.eval_returns.shape == (tr.config.num_eval_episodes,) == (8,), f"{name}: EvalEpCount {st.eval_returns.size}")
+    for what, rets, lens in (("", st.returns, st.lengths), ("eval ", st.eval_returns, st.eval_lengths)):
+        require(bool(np.isfinite(rets).all()) and bool(((lens >= 1) & (lens <= cutoff)).all()),
+                f"{name}: {what}returns not finite or lengths outside [1, {cutoff}]")
+        if name == "maze":
+            segs = tr.env.cfg["segs"]
+            diag = math.hypot(np.ptp(segs[:, [0, 2]]), np.ptp(segs[:, [1, 3]]))
+            require(bool(((rets >= -diag) & (rets <= 0)).all()) and bool((lens == 400).all()),
+                    f"{name}: {what}returns outside [-{diag:.1f}, 0] or episodes not 400 steps")
+        else:
+            require(bool((rets == lens).all()), f"{name}: {what}returns differ from the lengths")
+    require(math.isfinite(st.update_ratio), f"{name}: update ratio is not finite")
+
+
+def graph_against_eager(tr, idx) -> dict:
+    """The generation's rollout (its population, its own noise offsets
+    around the new θ, one reset seed) on the card twice: through the
+    rollout's CUDA graphs, as the trainer runs it, and eagerly (a check
+    interval past the cutoff, so that nothing is captured). Every result
+    must be equal bit for bit; returns both wall times."""
+    import torch
+
+    from deep_neuroevolution_torch.algos import rollout
+
+    def run():
+        state, gen = tr._episode_starts(7, idx.shape[0], paired=True)
+        params = tr._device_params(tr._perturbed(idx), tr._model_ctx(True, gen, paired=True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rollout.rollout_batch(tr.env, tr.model.make_batch_act(), params, state, int(tr.cutoff.tslimit), True)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    (graphed, graph_s), saved = run(), rollout.CHECK_EVERY
+    rollout.CHECK_EVERY = 10**9
+    try:
+        eager, eager_s = run()
+    finally:
+        rollout.CHECK_EVERY = saved
+    for name, a, b in zip(rollout.RolloutResult._fields, graphed, eager):
+        require(torch.equal(a, b), f"the graphed rollout's {name} differs from the eager one")
+    out = dict(members=2 * idx.shape[0], steps=int(eager.lengths.max()), timesteps=int(eager.lengths.sum()),
+               graph_seconds=graph_s, eager_seconds=eager_s)
+    print("rollout_graph_vs_eager " + json.dumps(out), flush=True)
+    return out
+
+
+def maze_teacher_forced(tr, members: int = 8) -> dict:
+    """A whole 400-step maze episode of ``members`` perturbed members of
+    the trainer's θ recorded on the card; then each recorded state goes
+    through the CPU's observe, forward and step (fed the card's actions),
+    and that one step must match the card's: observations and actions
+    within 1e-5, the state and reward within 1e-4 (a few float32 ulps of a
+    coordinate near 200: sin, cos and division round otherwise on the
+    card), done and the step counter exactly."""
+    import torch
+
+    env, model, D = tr.env, tr.model, tr.model.num_params
+    idx = torch.from_numpy(np.linspace(0, tr.noise.size - D, members).astype(np.int32)).to(tr.device)
+    thetas = tr.theta[None] + tr.config.noise_stdev * tr.noise.get_batch(idx, D)
+    parts = {k: v.contiguous() for k, v in model.unflatten(thetas).items()}
+    state, rec = env.reset(members, None, tr.device), []
+    for _ in range(400):
+        obs = env.observe(state)
+        a = model.batch_act_parts(parts, obs)
+        nstate, r, d = env.step(state, a)
+        rec.append(tuple(x.cpu() for x in (*state, obs, a, *nstate, r, d)))
+        state = nstate
+    cpu_parts = model.unflatten(thetas.cpu())
+    n = len(state)
+    errs = dict(obs=0.0, action=0.0, state=0.0, reward=0.0)
+    moved = undone = 0
+    for step in rec:
+        s, obs, a, ns, r, d = (type(state)(*step[:n]), step[n], step[n + 1], type(state)(*step[n + 2:2 * n + 2]),
+                               step[-2], step[-1])
+        obs_c = env.observe(s)
+        a_c = model.batch_act_parts(cpu_parts, obs_c)
+        ns_c, r_c, d_c = env.step(s, a)
+        errs["obs"] = max(errs["obs"], float((obs_c - obs).abs().max()))
+        errs["action"] = max(errs["action"], float((a_c - a).abs().max()))
+        errs["state"] = max(errs["state"], max(float((x - y).abs().max()) for x, y in zip(ns_c[:5], ns[:5])))
+        errs["reward"] = max(errs["reward"], float((r_c - r).abs().max()))
+        require(torch.equal(d_c, d) and torch.equal(ns_c.t, ns.t), "maze: done or the step counter differs")
+        moved += int(((ns.x != s.x) | (ns.y != s.y)).sum())
+        undone += int(((ns.x == s.x) & (ns.y == s.y) & (ns.speed != 0)).sum())  # a wall in the way
+    print("maze_teacher_forced " + json.dumps(dict(members=members, steps=len(rec), moves=moved,
+                                                   moves_undone=undone, **errs)), flush=True)
+    for k, tol in (("obs", 1e-5), ("action", 1e-5), ("state", 1e-4), ("reward", 1e-4)):
+        require(errs[k] <= tol, f"maze: card vs CPU {k} max abs err {errs[k]} > {tol}")
+    require(moved > 0, "maze: no member moved")
+    return errs
+
 def main() -> int:
     import torch
 
@@ -1112,6 +1279,37 @@ def main() -> int:
         del es_run
         torch.cuda.empty_cache()
 
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
+
+    with Phase("noise table"):
+        table = NoiseTable.from_seed(device=device)  # the reference's 250M floats, built once
+    device_paths = {}
+    for name in DEVICE_CONFIGS:
+        with Phase(f"{name} ES generation"):
+            run = run_device_es(device, name, table)
+            check_device_es(run, name)
+            if name == "maze":
+                maze_teacher_forced(run["trainer"])
+            ab = graph_against_eager(run["trainer"], run["idx"])
+        tr = run["trainer"]
+        with Phase(f"K2 at the {name} generation's shape"):
+            row = k2_case(device, table.noise, run["idx"], run["w"], tr.model.num_params, k2["l2_bytes_per_s"])
+        st = tr.last_stats
+        steps = int(st.lengths.sum())
+        print(f"{name}_es_generation " + json.dumps(dict(
+            config=DEVICE_CONFIGS[name], population=int(st.lengths.size), D=tr.model.num_params,
+            seconds=st.seconds, timesteps=steps, eval_timesteps=int(st.eval_lengths.sum()),
+            steps_per_s=steps / st.seconds, return_mean=float(st.returns.mean()),
+            eval_return_mean=float(st.eval_returns.mean()), k2_ms=row["ms"], k2_graph_ms=row["graph_ms"],
+            rollout_graph_seconds=ab["graph_seconds"], rollout_eager_seconds=ab["eager_seconds"],
+        )), flush=True)
+        device_paths[name] = dict(launches=run["launches"]["noise_gradient"],
+                                  **{k: row[k] for k in ("B", "D", "table", "ms", "graph_ms", "bound_ms", "bound_by",
+                                                         "l2_floor_ms", "plain_ms", "library_ms", "max_abs_err")})
+        del run, tr
+    del table
+    torch.cuda.empty_cache()
+
     def entry(name, source, replaces, launches, k, **extra):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1134,7 +1332,8 @@ def main() -> int:
               table=k2["table"], graph_ms=k2["graph_ms"], l2_floor_ms=k2["l2_floor_ms"],
               library_note=k2["library_note"],
               other_shapes=[{k: r[k] for k in ("B", "table", "ms", "graph_ms", "bound_ms", "l2_floor_ms",
-                                               "plain_ms", "library_ms", "max_abs_err")} for r in k2["other_shapes"]]),
+                                               "plain_ms", "library_ms", "max_abs_err")} for r in k2["other_shapes"]],
+              other_paths=device_paths),
         entry("large_dqn_fused_scores", "deep_neuroevolution_torch/csrc/large_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:298", ga_launches, k3_row,
               graph_ms=k3_row["graph_ms"], split_ms=k3_row["split_ms"]),

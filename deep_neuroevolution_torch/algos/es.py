@@ -1,31 +1,45 @@
-"""Evolution Strategies on the host engine, fixed-population mode.
+"""Evolution Strategies in fixed-population mode, on the host engine or a
+device env.
 
-The counterpart of the JAX package's algos/es.py ``ESTrainer`` host-engine
-arm (``_host_round``, ``train_step``, ``_finalize_generation``), after
+The counterpart of the JAX package's algos/es.py ``ESTrainer``, after
 es_distributed/es.py and gpu_implementation/es.py:
 
 * antithetic pairs θ ± σε, with ε a noise-table row at a sampled offset
   (es.py:411-426);
-* a generation of ``population_size`` episodes, run in rounds of at most
-  ``batch_size / 2`` pairs, further capped so the ``[2·pairs, D]`` θ batch
-  stays under ``theta_hbm_budget`` bytes of device memory;
+* a generation of ``population_size`` episodes, run in rounds of pairs,
+  capped so the ``[2·pairs, D]`` θ batch stays under ``theta_hbm_budget``
+  bytes of device memory (and, on the host engine, by the slot count);
 * VBN reference stats per perturbed member, from a reference batch that a
   random policy collects once (es.py:159-162);
 * centered ranks, g = Σ(w⁺−w⁻)ᵢ·εᵢ / (2n) through kernel K2, and the
   optimizer step on −g + l2coeff·θ (es.py:281-301);
 * the episode-cutoff DSL and its adaptive bump (es.py:169-186, 308-311);
 * ``num_eval_episodes`` noiseless episodes of the pre-update θ each
-  generation, on the first engine slots (es.py:588-611), logged as the
-  reference's ``Eval*`` metrics;
+  generation (es.py:388-405), logged as the reference's ``Eval*`` metrics;
 * the reference's tabular metric names (es.py:314-343).
+
+Two arms run a round. The host arm (``_host_round``, ``_host_eval``)
+drives the C++ engine through algos/rollout_host.py. The device arm
+(``_device_round``, ``_device_eval``; the JAX package's
+``_perturbed_round_body``, ``_eval_theta_body`` and ``_fused_generation``'s
+order) steps a device env in lockstep with the population forward
+(algos/rollout.py): pairs start from one reset state and share their
+action noise; every rollout's observations go into obs-stat sums, each
+rollout with probability ``calc_obstat_prob`` when it lies in (0, 1); the
+sums merge into the running stats when the model normalizes observations
+and ``calc_obstat_prob`` > 0 (es.py:246-248, 356-363). A generation reads
+the device's results on the host once, after its update and eval episodes.
 
 Host-side draws (θ init, noise offsets, rollout seeds) come from one CPU
 ``torch.Generator`` seeded with ``seed``; ``_draw_round`` is the single
 place a round's randomness is drawn, ``_draw_eval_seed`` the eval
-episodes'.
+episodes'. On a device env a rollout seed seeds a generator on the device
+(``_episode_starts``) for the episodes' reset states, action noise and
+obs-stat sampling.
 
-Not ported yet: quota mode (episodes/timesteps per batch), obs-stat
-merging, mirrored pairs (``mirror_crn``), VINE dumps, device envs.
+Not ported yet: quota mode (episodes/timesteps per batch) and the JAX
+package's ``_update_and_eval``, mirrored pairs (``mirror_crn``), obs stats
+on the host engine, VINE dumps.
 """
 
 from __future__ import annotations
@@ -40,10 +54,12 @@ from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..models.core import Model
-from ..ops import fitness, optim
+from ..models.mlp import MLPContext
+from ..ops import fitness, obstat, optim
 from ..ops.noise import NoiseTable
 from ..ops.noise_gradient import noise_gradient
 from ..utils import tabular as tlogger
+from .rollout import collect_ref_batch, paired_reset, rollout_batch
 from .rollout_host import collect_ref_batch_host, rollout_host_batch
 
 
@@ -58,6 +74,7 @@ class ESConfig:
     episode_cutoff_mode: Any = "env_default"
     num_eval_episodes: int = 8  # noiseless episodes of θ per generation
     theta_hbm_budget: int = 2**31  # bytes allowed for one round's [2·pairs, D] θ batch
+    calc_obstat_prob: float = 0.0  # share of rollouts feeding the obs stats (es.py:356-363)
 
 
 class CutoffState(NamedTuple):
@@ -100,10 +117,11 @@ class GenStats(NamedTuple):
     seconds: float  # the generation's wall time (TimeElapsedThisIter)
     eval_returns: np.ndarray  # [num_eval_episodes] returns of the noiseless θ
     eval_lengths: np.ndarray  # [num_eval_episodes]
+    bc: np.ndarray  # [n, 2, bc_dim] the rollouts' final-state behavior characterizations
 
 
 class ESTrainer:
-    """Fixed-population ES on a host-engine env."""
+    """Fixed-population ES on a host-engine env or a device env."""
 
     def __init__(
         self,
@@ -115,10 +133,11 @@ class ESTrainer:
         seed: int = 0,
         device=None,
     ):
-        if not getattr(env, "is_host_env", False):
-            raise NotImplementedError("only host-engine envs are ported yet")
         if config.population_size <= 0:
             raise NotImplementedError("only fixed-population mode (population_size > 0) is ported yet")
+        self.is_host_env = getattr(env, "is_host_env", False)
+        if self.is_host_env and model.needs_ob_stat:
+            raise NotImplementedError("obs stats on the host engine are not ported yet")
         self.device = resolve_device(device)
         self.env = env
         self.model = model
@@ -134,8 +153,12 @@ class ESTrainer:
         self.cutoff = parse_cutoff(config.episode_cutoff_mode, env.default_timestep_cutoff)
         self.ref_batch = None
         if model.needs_ref_batch:
-            self.ref_batch = collect_ref_batch_host(env, self._draw_seed(), self.device)
+            if self.is_host_env:
+                self.ref_batch = collect_ref_batch_host(env, self._draw_seed(), self.device)
+            else:
+                self.ref_batch = collect_ref_batch(env, self._episode_gen(self._draw_seed()), self.device)
         self.opt_state = self.optimizer.init(model.num_params, self.device)
+        self.ob_stat = obstat.init(env.obs_shape, eps=1e-2, device=self.device)  # es.py:155-158
         self.iteration = 0
         self.episodes_so_far = 0
         self.timesteps_so_far = 0
@@ -157,23 +180,49 @@ class ESTrainer:
         """The rollout seed of a generation's eval episodes."""
         return self._draw_seed()
 
+    def _episode_gen(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _episode_starts(self, seed: int, n: int, paired: bool):
+        """Device env: the reset state of ``n`` episodes (twice over, the
+        halves alike, when ``paired``) and the generator that the episodes'
+        other draws come from, both from the rollout seed."""
+        gen = self._episode_gen(seed)
+        state = paired_reset(self.env, n, gen, self.device) if paired else self.env.reset(n, gen, self.device)
+        return state, gen
+
     # -------------------------------------------------------------- rounds
 
     def _npairs_round(self) -> int:
+        """Pairs a round evaluates: the population's, capped by the θ
+        budget and, on the host engine, by the slot count."""
         cfg = self.config
         cap = max(1, int(cfg.theta_hbm_budget) // (2 * self.model.num_params * 4))
-        return max(min(cfg.population_size // 2, cap, self.env.batch_size // 2), 1)
+        npairs = min(cfg.population_size // 2, cap)
+        if self.is_host_env:
+            npairs = min(npairs, self.env.batch_size // 2)
+        return max(npairs, 1)
+
+    def _perturbed(self, idxs: torch.Tensor) -> torch.Tensor:
+        """``[2n, D]``: θ + σε for each offset, then θ − σε."""
+        eps = self.noise.get_batch(idxs.to(self.device), self.model.num_params)
+        sigma = self.config.noise_stdev
+        return torch.cat([self.theta[None] + sigma * eps, self.theta[None] - sigma * eps])
+
+    def _model_ctx(self, noisy: bool, gen: Optional[torch.Generator] = None, paired: bool = False):
+        """Context of a device rollout: the obs stats' mean and std, and
+        action noise on in training rollouts (es.py:415-421 → policies.py:
+        202-206), off in eval ones (es.py:393)."""
+        if not self.model.needs_ob_stat:
+            return None
+        return MLPContext(obstat.mean(self.ob_stat), obstat.std(self.ob_stat), 1.0 if noisy else 0.0, gen, paired)
 
     def _host_round(self, npairs: int):
         """One antithetic round: θ±σε for ``npairs`` pairs on the first
         ``2·npairs`` engine slots. Returns (idxs, returns [n,2],
-        sign returns [n,2], lengths [n,2])."""
+        sign returns [n,2], lengths [n,2], bc [n,2,·]) as numpy."""
         idxs, seed = self._draw_round(npairs)
-        idxs = idxs.to(self.device)
-        eps = self.noise.get_batch(idxs, self.model.num_params)
-        sigma = self.config.noise_stdev
-        thetas = torch.cat([self.theta[None] + sigma * eps, self.theta[None] - sigma * eps])
-        del eps
+        thetas = self._perturbed(idxs)
         with record_function("es.ref_stats"):
             stats = self.model.batch_ref_stats(thetas, self.ref_batch) if self.model.needs_ref_batch else None
         if 2 * npairs < self.env.batch_size:  # unused slots run copies of the last member
@@ -186,7 +235,7 @@ class ESTrainer:
                 self.env, self.model.make_batch_act(), (thetas, stats), seed, int(self.cutoff.tslimit), self.device
             )
         pair = lambda x: np.stack([x[:npairs], x[npairs : 2 * npairs]], axis=1)  # noqa: E731
-        return idxs, pair(res.returns), pair(res.sign_returns), pair(res.lengths)
+        return idxs, pair(res.returns), pair(res.sign_returns), pair(res.lengths), pair(res.bc)
 
     def _host_eval(self, seed: int) -> Tuple[np.ndarray, np.ndarray]:
         """Noiseless episodes of θ on the first ``n = min(num_eval_episodes,
@@ -204,51 +253,128 @@ class ESTrainer:
         )
         return res.returns[:n], res.lengths[:n]
 
+    def _device_params(self, thetas: torch.Tensor, ctx):
+        if self.model.needs_ref_batch:
+            return thetas, self.model.batch_ref_stats(thetas, self.ref_batch)
+        return thetas, ctx
+
+    def _device_round(self, npairs: int, obstat_prob: Optional[float]):
+        """One antithetic round on the device env (the JAX package's
+        ``_perturbed_round_body``): 2·npairs slots, pairs from one reset
+        state. Returns (idxs, returns [n,2], sign returns [n,2], lengths
+        [n,2], bc [n,2,·], ob_sum, ob_sumsq, ob_count), on the device but
+        idxs."""
+        idxs, seed = self._draw_round(npairs)
+        state, gen = self._episode_starts(seed, npairs, paired=True)
+        thetas = self._perturbed(idxs)
+        with record_function("es.ref_stats"):
+            params = self._device_params(thetas, self._model_ctx(True, gen, paired=True))
+        mask = None
+        if obstat_prob is not None:  # each rollout joins with probability p (es.py:356-363)
+            mask = (torch.rand(2 * npairs, generator=gen, device=gen.device) < obstat_prob).to(torch.float32)
+        with record_function("es.rollout"):
+            res = rollout_batch(
+                self.env, self.model.make_batch_act(), params, state, int(self.cutoff.tslimit), True, mask
+            )
+        pair = lambda x: torch.stack([x[:npairs], x[npairs:]], dim=1)  # noqa: E731
+        return (idxs, pair(res.returns), pair(res.sign_returns), pair(res.lengths), pair(res.bc),
+                res.ob_sum, res.ob_sumsq, res.ob_count)
+
+    def _device_eval(self, seed: int):
+        """``num_eval_episodes`` noiseless episodes of θ on the device env,
+        each from its own reset state (the JAX package's
+        ``_eval_theta_body``). Returns (returns [n], lengths [n]) on the
+        device."""
+        n = self.config.num_eval_episodes
+        state, gen = self._episode_starts(seed, n, paired=False)
+        thetas = self.theta[None].expand(n, -1)
+        if self.model.needs_ref_batch:
+            one = self.model.batch_ref_stats(self.theta[None], self.ref_batch)
+            params = thetas, type(one)(*(tuple(x.expand(n, -1) for x in f) for f in one))
+        else:
+            params = thetas, self._model_ctx(False, gen)
+        res = rollout_batch(self.env, self.model.make_batch_act(), params, state, int(self.cutoff.tslimit))
+        return res.returns, res.lengths
+
     # ---------------------------------------------------------- generation
 
-    def _compute_update(self, noise_idxs: torch.Tensor, returns_n2: np.ndarray, signreturns_n2: np.ndarray):
-        """Rank transform → gradient (K2) → L2 → optimizer step. Returns
-        (g, new opt state, new θ, update ratio)."""
+    def _compute_update(self, noise_idxs: torch.Tensor, returns_n2, signreturns_n2):
+        """Rank transform → gradient (K2) → L2 → optimizer step, from [n, 2]
+        returns (numpy or tensors). Returns (g, new opt state, new θ, update
+        ratio)."""
         cfg = self.config
         rets = torch.as_tensor(returns_n2, device=self.device)
         srets = torch.as_tensor(signreturns_n2, device=self.device)
         proc = fitness.process_returns(rets, srets, cfg.return_proc_mode)
         w = (proc[:, 0] - proc[:, 1]).contiguous()
         g = noise_gradient(self.noise.noise, noise_idxs.to(self.device, torch.int32).contiguous(), w, self.model.num_params)
-        g = g / returns_n2.size  # es.py:296
+        g = g / rets.numel()  # es.py:296
         opt_state, theta, ratio = self.optimizer.update(self.opt_state, self.theta, -g + cfg.l2coeff * self.theta)
         return g, opt_state, theta, ratio
 
     def train_step(self) -> GenStats:
+        return self._host_generation() if self.is_host_env else self._device_generation()
+
+    def _host_generation(self) -> GenStats:
         cfg = self.config
         step_tstart = time.time()
         eval_seed = self._draw_eval_seed() if cfg.num_eval_episodes > 0 else None
         npairs = self._npairs_round()
-        all_idxs, all_rets, all_srets, all_lens = [], [], [], []
+        rounds = []
         episodes = 0
         while episodes < cfg.population_size:
-            idxs, rets, srets, lens = self._host_round(npairs)
-            all_idxs.append(idxs)
-            all_rets.append(rets)
-            all_srets.append(srets)
-            all_lens.append(lens)
-            episodes += lens.size
-        noise_idxs = torch.cat(all_idxs)
-        returns_n2 = np.concatenate(all_rets)
-        lengths_n2 = np.concatenate(all_lens)
+            rounds.append(self._host_round(npairs))
+            episodes += rounds[-1][3].size
+        idxs, *columns = zip(*rounds)
+        noise_idxs = torch.cat(idxs)
+        returns_n2, srets_n2, lengths_n2, bc_n2 = (np.concatenate(c) for c in columns)
         with record_function("es.update"):
-            g, opt_state, theta, ratio = self._compute_update(noise_idxs, returns_n2, np.concatenate(all_srets))
+            g, opt_state, theta, ratio = self._compute_update(noise_idxs, returns_n2, srets_n2)
         gnorm = float(torch.sum(g * g))
         eval_rets, eval_lens = np.zeros(0, np.float32), np.zeros(0, np.int32)
         if eval_seed is not None:
             with record_function("es.eval"):
                 eval_rets, eval_lens = self._host_eval(eval_seed)  # θ before the update
         return self._finalize_generation(
-            opt_state, theta, float(ratio), gnorm, returns_n2, lengths_n2, eval_rets, eval_lens, step_tstart
+            opt_state, theta, float(ratio), gnorm, returns_n2, lengths_n2, bc_n2, eval_rets, eval_lens, 0.0,
+            step_tstart,
+        )
+
+    def _device_generation(self) -> GenStats:
+        """The JAX package's ``_fused_generation`` order: the rounds, the
+        update from their returns, the eval episodes of the pre-update θ;
+        then one read of the results on the host, and the obs-stat merge."""
+        cfg = self.config
+        step_tstart = time.time()
+        eval_seed = self._draw_eval_seed() if cfg.num_eval_episodes > 0 else None
+        total_pairs = max(cfg.population_size // 2, 1)
+        npairs = min(self._npairs_round(), total_pairs)
+        p = cfg.calc_obstat_prob
+        obstat_prob = p if self.model.needs_ob_stat and 0.0 < p < 1.0 else None
+        rounds = [self._device_round(npairs, obstat_prob) for _ in range(-(-total_pairs // npairs))]
+        idxs = torch.cat([r[0] for r in rounds])
+        rets, srets, lens, bcs = (torch.cat([r[i] for r in rounds]) for i in range(1, 5))
+        ob_sum, ob_sumsq, ob_count = (sum(r[i] for r in rounds) for i in range(5, 8))
+        with record_function("es.update"):
+            g, opt_state, theta, ratio = self._compute_update(idxs, rets, srets)
+        eval_rets = eval_lens = torch.zeros(0, device=self.device)
+        if eval_seed is not None:
+            with record_function("es.eval"):
+                eval_rets, eval_lens = self._device_eval(eval_seed)  # θ before the update
+        gnorm = torch.sum(g * g)
+        rets, lens, bcs, eval_rets, eval_lens, gnorm, ratio, count = (
+            x.cpu().numpy() for x in (rets, lens, bcs, eval_rets, eval_lens, gnorm, ratio, ob_count)
+        )
+        if self.model.needs_ob_stat and count > 0 and p > 0:  # es.py:246-248
+            self.ob_stat = obstat.increment(self.ob_stat, ob_sum, ob_sumsq, ob_count)
+        return self._finalize_generation(
+            opt_state, theta, float(ratio), float(gnorm), rets, lens, bcs, eval_rets, eval_lens, float(count),
+            step_tstart,
         )
 
     def _finalize_generation(
-        self, opt_state, theta, ratio, gnorm, returns_n2, lengths_n2, eval_rets, eval_lens, step_tstart
+        self, opt_state, theta, ratio, gnorm, returns_n2, lengths_n2, bc_n2, eval_rets, eval_lens, ob_count,
+        step_tstart,
     ) -> GenStats:
         """State swap, cutoff curriculum, and the reference-named metrics."""
         self.cutoff = update_cutoff(self.cutoff, lengths_n2)
@@ -281,7 +407,7 @@ class ESTrainer:
         tlogger.record_tabular("UniqueWorkers", 1)
         tlogger.record_tabular("UniqueWorkersFrac", 1.0)
         tlogger.record_tabular("ResultsSkippedFrac", 0.0)
-        tlogger.record_tabular("ObCount", 0.0)
+        tlogger.record_tabular("ObCount", ob_count)
         tlogger.record_tabular("TimeElapsedThisIter", step_tend - step_tstart)
         tlogger.record_tabular("TimeElapsed", step_tend - self._tstart)
         tlogger.record_tabular(
@@ -289,7 +415,7 @@ class ESTrainer:
         )
         tlogger.dump_tabular()
         self.last_stats = GenStats(
-            returns_n2, lengths_n2, gnorm, ratio, step_tend - step_tstart, eval_rets, eval_lens
+            returns_n2, lengths_n2, gnorm, ratio, step_tend - step_tstart, eval_rets, eval_lens, bc_n2
         )
         return self.last_stats
 
@@ -298,5 +424,6 @@ class ESTrainer:
             self.train_step()
 
     def close(self) -> None:
-        """Stop the env's engine threads."""
-        self.env.close()
+        """Stop the host engine's threads (a device env holds none)."""
+        if self.is_host_env:
+            self.env.close()

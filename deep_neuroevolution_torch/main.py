@@ -9,8 +9,13 @@ The counterpart of the JAX package's main.py ``cmd_train``:
         --exp_file configurations/ga_atari_config.json --iterations 2 \\
         --overrides '{"game": "toy", "population_size": 512, "episode_cutoff_mode": 200}'
 
-``--algo`` picks es, ga or rs; without it a file with "selection_threshold"
-runs the GA and any other file ES.
+    python -m deep_neuroevolution_torch.main train --exp_file configurations/maze_es.json
+    python -m deep_neuroevolution_torch.main train --exp_file configurations/es_gym_config.json
+
+``--algo`` picks es, ga or rs; without it a GPU-stack file with
+"selection_threshold" runs the GA and any other file ES. A CPU-stack file
+(``env_id``, ``policy``, ``config``; maze_es.json) runs ES. maze_es.json
+and es_gym_config.json run on the device envs (Hard Maze, CartPole).
 
 It runs on the CUDA device unless ``--device cpu`` is given, and exits with
 the "no CUDA device" error where there is none. Each generation prints the
@@ -94,7 +99,7 @@ def profile_generation(trainer, out_dir: str) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="deep_neuroevolution_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    t = sub.add_parser("train", help="run an ES, GA or RS experiment (GPU-stack JSON schema)")
+    t = sub.add_parser("train", help="run an ES, GA or RS experiment (GPU-stack or CPU-stack JSON schema)")
     t.add_argument("--exp_file", required=True, help="experiment JSON path")
     t.add_argument("--algo", choices=["es", "ga", "rs"], help="algorithm (default: from the file)")
     t.add_argument("--log_dir", default="", help="log.txt and metrics.jsonl go here")

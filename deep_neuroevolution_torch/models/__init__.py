@@ -1,9 +1,12 @@
 """Policy models, resolved by the reference's model names
-(gpu_implementation/es.py:144 looks models up by the config's "model")."""
+(gpu_implementation/es.py:144 looks models up by the config's "model"; the
+CPU stack by its "policy" type, es_distributed/es.py:136)."""
 
-from .core import Model  # noqa: F401
+from .core import NONLINS, Model, dense  # noqa: F401
 from .batchnorm import VirtualBNDQN  # noqa: F401
 from .dqn import LargeDQN, LargeDQNXavier, SmallDQN, SmallDQNXavier  # noqa: F401
+from .mlp import MLPContext, MujocoMLP, default_context  # noqa: F401
+from .simple import ContinuousMLP, LinearClassifier, SimpleClassifier  # noqa: F401
 
 REGISTRY = {
     # GPU stack names (the reference's models/__init__.py)
@@ -12,6 +15,11 @@ REGISTRY = {
     "SmallDQN": SmallDQNXavier,
     "LargeDQN": LargeDQNXavier,
     "ModelVirtualBN": VirtualBNDQN,  # gpu_implementation es_atari_config.json
+    "LinearClassifier": LinearClassifier,
+    "SimpleClassifier": SimpleClassifier,
+    "ContinuousMLP": ContinuousMLP,
+    # CPU stack policy names (es_distributed/policies.py)
+    "MujocoPolicy": MujocoMLP,
     # class names
     "VirtualBNDQN": VirtualBNDQN,
     "SmallDQNXavier": SmallDQNXavier,

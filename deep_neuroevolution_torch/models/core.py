@@ -8,7 +8,9 @@ weight reshaped to ``[k·k·C, O]``.
 A population forward evaluates B members, each with its own θ, on its own
 frame. The conv layers are batched matrix products over im2col patches;
 the fc layer, which holds most of the weight bytes, goes through
-``pop_matvec`` (kernel K1 on a CUDA tensor).
+``pop_matvec`` (kernel K1 on a CUDA tensor). The MLPs' layers go through
+``dense``, a batched product on the library (the JAX package lowers its
+``jax.vmap`` of ``x @ w`` to a batched GEMM outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -62,6 +64,25 @@ def pop_matvec(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     population's fc layer. Kernel K1 on a CUDA tensor, its plain version on
     a CPU tensor (ops/population_linear.py)."""
     return population_linear(x, W)
+
+
+def dense(parts: Dict[str, torch.Tensor], name: str, x: torch.Tensor) -> torch.Tensor:
+    """Population dense layer: ``[B, K]·[B, K, N] + [B, N]`` for the stacked
+    parts ``{name}/w`` and ``{name}/b`` (tf_util.py:150-162), float32."""
+    return torch.bmm(x[:, None, :], parts[f"{name}/w"])[:, 0] + parts[f"{name}/b"]
+
+
+def _elu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.elu: x where x > 0, else expm1(x)."""
+    return torch.where(x > 0, x, torch.expm1(torch.clamp(x, max=0.0)))
+
+
+NONLINS = {
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "lrelu": lambda x: torch.maximum(x, 0.2 * x),  # tf_util lrelu, leak 0.2
+    "elu": _elu,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,4 +147,10 @@ class Model:
 
     @property
     def needs_ref_batch(self) -> bool:
+        return False
+
+    @property
+    def needs_ob_stat(self) -> bool:
+        """Whether the forward normalizes observations by running stats
+        that ride in its context (policies.py:211-213)."""
         return False

@@ -572,3 +572,51 @@ def test_ga_generation_on_card(cuda_device, monkeypatch):
     assert fk.large_dqn_fused_scores.launches > before
     assert tr.state.it == 2 and tr.cached_parent_thetas.device.type == "cuda"
     assert bool(torch.isfinite(tr.cached_parent_thetas).all())
+
+
+def _graph_and_eager(monkeypatch, run):
+    """``run()`` through the rollout's CUDA graphs, then eagerly (a check
+    interval past the cutoff: no chunk is captured)."""
+    from deep_neuroevolution_torch.algos import rollout
+
+    graphed = run()
+    monkeypatch.setattr(rollout, "CHECK_EVERY", 10**9)
+    return graphed, run()
+
+
+@pytest.mark.parametrize("env_id,model", [
+    ("maze", ("ContinuousMLP", dict(obs_dim=11, ac_dim=2))),
+    ("gym.CartPole-v1", ("SimpleClassifier", dict(obs_dim=4, num_actions=2))),
+    ("gym.Pendulum-v1", ("MujocoPolicy", dict(obs_dim=3, ac_dim=1, ac_low=(-2.0,), ac_high=(2.0,),
+                                              ac_bins="uniform:5", hidden_dims=(16, 16)))),
+    ("gym.Pendulum-v1", ("MujocoPolicy", dict(obs_dim=3, ac_dim=1, ac_low=(-2.0,), ac_high=(2.0,),
+                                              hidden_dims=(16, 16)))),
+])
+def test_device_rollout_graphs_match_eager(cuda_device, monkeypatch, env_id, model):
+    """The device rollout through CUDA graphs repeats the eager loop bit for
+    bit on the card: 64 paired members, a cutoff of 203 steps (a captured
+    chunk, replays and an eager remainder), obs stats with a mask; for
+    MujocoPolicy with action noise from the context's generator, which the
+    graph registers (the same seed gives the same draws either way)."""
+    from deep_neuroevolution_torch import envs, models
+    from deep_neuroevolution_torch.algos import rollout
+
+    env = envs.make(env_id)
+    m = models.get_model(model[0])(**model[1])
+    gen = torch.Generator().manual_seed(0)
+    thetas = torch.stack([m.init_theta(gen) for _ in range(64)]).to(cuda_device)
+    mask = (torch.arange(64, device=cuda_device) % 3 != 0).float()
+
+    def run():
+        g = torch.Generator(device=cuda_device).manual_seed(5)
+        state = rollout.paired_reset(env, 32, g, cuda_device)
+        ctx = None
+        if m.needs_ob_stat:
+            ctx = models.MLPContext(torch.zeros(3, device=cuda_device), torch.ones(3, device=cuda_device), 1.0, g, True)
+        return rollout.rollout_batch(env, m.make_batch_act(), (thetas, ctx), state, 203, True, mask)
+
+    chunk = rollout.CHECK_EVERY
+    graphed, eager = _graph_and_eager(monkeypatch, run)
+    for name, a, b in zip(rollout.RolloutResult._fields, graphed, eager):
+        assert torch.equal(a, b), name
+    assert int(eager.lengths.max()) > 2 * chunk  # past the eager first chunk: replays ran

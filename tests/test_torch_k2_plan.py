@@ -134,6 +134,39 @@ def test_emulation_matches_plain_and_xla(name, N, D, sm_count):
     np.testing.assert_allclose(ours, xla, rtol=0, atol=tol)
 
 
+# the device envs' MLPs: the maze's ContinuousMLP (D=498, 256 pairs, a
+# population of 512) and CartPole's SimpleClassifier (D=386, 2500 pairs),
+# each D with each B
+MLP_SHAPES = [(256, 498), (2500, 498), (256, 386), (2500, 386)]
+
+
+@pytest.mark.parametrize("B,D", MLP_SHAPES)
+def test_plan_and_emulation_at_the_mlp_widths(B, D):
+    """On 132 SMs, one round of 4-output tiles (125 blocks for D=498, 97
+    for D=386), every pair in one sort chunk; the emulated kernel, on
+    uniform offsets, against the plain version and the JAX package's XLA
+    path within 1e-5·max|g|."""
+    p = k2.plan(B, D, 132)
+    assert (p.tile, p.rounds, p.chunks) == (4, 1, 1)
+    assert p.tiles == p.grid == {498: 125, 386: 97}[D]
+    cover = np.zeros(D, np.int32)
+    for t in range(p.tiles):
+        outs = p.thread_outputs(t)
+        cover[outs[outs >= 0]] += 1
+    assert (cover == 1).all()
+    rs = np.random.RandomState(B + D)
+    N = 200_003
+    table = rs.randn(N).astype(np.float32)
+    idx = _offsets("uniform", N, D, B, rs)
+    w = rs.randn(B).astype(np.float32)
+    ours = _emulate(table, idx, w, D, 132)
+    plain = k2.noise_gradient(torch.from_numpy(table), torch.from_numpy(idx), torch.from_numpy(w), D).numpy()
+    xla = np.asarray(jfit.gradient_from_noise(jnp.asarray(table), jnp.asarray(idx), jnp.asarray(w), D, 256))
+    tol = 1e-5 * np.abs(xla).max()
+    np.testing.assert_allclose(ours, plain, rtol=0, atol=tol)
+    np.testing.assert_allclose(ours, xla, rtol=0, atol=tol)
+
+
 def test_emulation_matches_pallas_on_aligned_offsets():
     """Where the TPU kernel takes the offsets (multiples of its granule),
     the emulated kernel against it in interpret mode."""
