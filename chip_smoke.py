@@ -45,13 +45,18 @@ ends:
    and K1 counters must move; then K5 is timed (in a CUDA graph) at each
    batch size the generation launched it with;
 9. kernels K4 (vbn_dqn_fused1_scores) and K6 (vbn_dqn_fused_scores), the
-   VBN-DQN's whole-net forwards, against their plain versions at B=1, 8,
-   128 and 256, 4 and 18 actions, beside the split route's time (convs, K1
-   and the out layer) in float32 and bfloat16;
+   VBN-DQN's whole-net forwards, against their plain versions at B=1, 4,
+   8, 128 and 256 (each member split over several blocks at B ≤ 44, the
+   persistent grid above), 4 and 18 actions, and against a second launch
+   of themselves (bit for bit), timed back-to-back and in a CUDA graph
+   beside the split route's time (convs, K1 and the out layer) in float32
+   and bfloat16; and on the all-ties case (every x1 value, and K6's x2,
+   next to a bf16 rounding midpoint) against the sequential chains;
 10. one ES generation of configurations/es_atari_config.json at phase 4's
    cut through the Python API with ``forward_impl='fused1'``: K4's counter
    must move, the 8 eval episodes run, and a small forward on the card (K4)
-   must agree with the CPU's plain K4;
+   must agree with the CPU's plain K4; then K4 is checked and timed (in a
+   CUDA graph) at each batch size the generation launched it with;
 11. the same with ``forward_impl='fused'`` and K6;
 12. the same with ``forward_impl='split'`` (K1), so that the three routes'
    generations are timed alike, each after a warm-up of the process.
@@ -127,9 +132,9 @@ K5_CASES = (("SmallDQN", "float32", 128), ("SmallDQN", "float32", 256), ("SmallD
             ("SmallDQN", "float32", 7), ("LargeDQN", "bfloat16", 1), ("LargeDQN", "bfloat16", 7))
 # phase 8's cut of rs_atari_config.json (population 1000, cutoff 5000)
 RS_CUT = {"population_size": 256, "episode_cutoff_mode": 200, "noise_size": 25_000_000, "batch_size": 256}
-# K4 and K6 at B=8 (the eval episodes), 128 (one of an ES round's two
-# pipeline groups) and 256, and at B=1
-VBN_BATCHES = (1, 8, 128, 256)
+# K4 and K6 at B=4 (an eval-episode group), 128 (one of an ES round's two
+# pipeline groups) and 256, and at B=1 and 8
+VBN_BATCHES = (1, 4, 8, 128, 256)
 # the VBN-DQN's whole-net kernels: forward_impl → (kernel, its plain version's name)
 VBN_ROUTES = {"fused1": ("vbn_dqn_fused1_scores", "vbn_dqn_fused1_scores_plain"),
               "fused": ("vbn_dqn_fused_scores", "vbn_dqn_fused_scores_plain")}
@@ -529,8 +534,8 @@ def zero_counters() -> None:
         f.launches = 0
     k1 = kernel_counters()["population_linear"]
     k1.bulk_launches = k1.general_launches = 0
-    kernel_counters()["large_dqn_fused_scores"].launches_by_batch.clear()
-    kernel_counters()["dqn_conv_chain_fused"].launches_by_batch.clear()
+    for name in ("large_dqn_fused_scores", "dqn_conv_chain_fused", "vbn_dqn_fused1_scores", "vbn_dqn_fused_scores"):
+        kernel_counters()[name].launches_by_batch.clear()
 
 
 def read_counters() -> dict:
@@ -759,7 +764,8 @@ def time_by_batch(name: str, by_batch: dict, make_call, rel_tol: float, lanes=No
     within ``rel_tol``·max|ref|) and for a bit-for-bit second launch, then
     timed in a CUDA graph after a warm-up.
     Prints launches × time by batch size and the share of the kernel's time
-    in batches below 128 (the ladder's buckets)."""
+    in batches below 128 (the ladder's buckets); returns those totals and
+    the rows."""
     import torch
 
     rows = []
@@ -784,7 +790,7 @@ def time_by_batch(name: str, by_batch: dict, make_call, rel_tol: float, lanes=No
     summary = dict(launches=sum(by_batch.values()), total_ms=total, below_128_ms=small,
                    below_128_share=small / total if total else 0.0)
     print(f"{name}_by_batch_total " + json.dumps(summary), flush=True)
-    return summary
+    return dict(summary, rows=rows)
 
 
 def time_large_fused_by_batch(device, by_batch: dict) -> dict:
@@ -885,17 +891,107 @@ def vbn_members(model, B: int, gen, device):
     return base[None] + 0.02 * torch.randn((B, model.num_params), generator=gen, device=device)
 
 
-def check_vbn_fused(device) -> list:
-    """K4 and K6 against their plain versions on the same inputs, with the
-    stats of a reference batch of random frames. Tolerance 1e-3·max|score|:
-    both keep the bf16 roundings (x1; x2 in K6) and sum in f32, in other
-    orders, so a sum near a rounding boundary can round one ulp the other
-    way; dropping or swapping a rounding point moves the scores by 3.7e-3·max
-    or more (tests/test_torch_vbn_fused.py TestCardTolerance)."""
+def vbn_ops(impl: str, th, stats, obs, num_actions: int = 4) -> dict:
+    """K4's (``impl='fused1'``) or K6's ('fused') operands: members θ with
+    their reference stats, on the frames ``obs``."""
     import torch
 
     from deep_neuroevolution_torch.models import VirtualBNDQN
     from deep_neuroevolution_torch.models.core import extract_patches
+
+    B = th.shape[0]
+    parts, _ = VirtualBNDQN(num_actions=num_actions, forward_impl=impl).prepare_batch_params((th, stats))
+    return dict(parts["__fused__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+
+
+def vbn_random_ops(impl: str, B: int, gen, device, ref_frames) -> dict:
+    """K4's or K6's operands for B perturbed members (vbn_members) with the
+    stats of ``ref_frames``, on random frames."""
+    import torch
+
+    from deep_neuroevolution_torch.models import VirtualBNDQN
+
+    model = VirtualBNDQN(num_actions=4)
+    th = vbn_members(model, B, gen, device)
+    obs = torch.rand((B, 84, 84, 4), generator=gen, device=device)
+    return vbn_ops(impl, th, model.batch_ref_stats(th, ref_frames), obs)
+
+
+def vbn_bound(impl: str, ops: dict, y):
+    """K4's or K6's bound: the bytes of its operands and scores; the convs'
+    bf16 products, the fc's at the type of x2 (float32 in K4, bf16 in K6)
+    and the out layer's float32 ones."""
+    B = ops["patches1"].shape[0]
+    conv_ops = 2 * B * (441 * 256 * 16 + 121 * 256 * 32)
+    fc_ops = 2 * B * 121 * 32 * 256
+    f32_ops = 2 * B * 256 * 64
+    return bound(nbytes(*ops.values(), y), {"bfloat16": conv_ops + (fc_ops if impl == "fused" else 0),
+                                            "float32": f32_ops + (fc_ops if impl == "fused1" else 0)})
+
+
+MIDPOINT = 1.0 + 2.0 ** -8  # halfway between the bf16 values 1 and 1 + 2^-7
+
+
+def sequential(a, w):
+    """a · w ([B, M, K] × [B, K, N]) as the near-tie recompute of K4, K5 and
+    K6 sums: a float32 chain in k order from 0. a and w hold bf16 values, so
+    each product is exact in float32 and each add rounds once, as an FMA
+    does."""
+    import torch
+
+    out = torch.zeros(a.shape[0], a.shape[1], w.shape[2], device=a.device)
+    for k in range(a.shape[2]):
+        out = out + a[..., k:k + 1] * w[:, k:k + 1, :]
+    return out
+
+
+def vbn_all_ties_case(impl: str, B: int, device):
+    """K4 (``impl='fused1'``) or K6 ('fused') operands on which every value
+    of x1, and in K6 every value of x2 whose taps all lie inside x1, sits
+    within a few float32 ulps of a bf16 rounding midpoint, so each conv
+    notes thousands of near ties, more than the list holds (1024): every
+    patch row of a member is its frame's centre patch, so a channel's sum
+    repeats at all 441 positions (x2's at the 81 inner ones), and each
+    shift c puts h·a + c on MIDPOINT. Returns the operands and the scores
+    that the sequential chains give, which the kernel must match once it
+    recomputes every value of the conv."""
+    import torch
+
+    from deep_neuroevolution_torch.models.core import extract_patches
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    ops = vbn_random_ops(impl, B, gen, device, torch.rand((16, 84, 84, 4), generator=gen, device=device))
+    row = ops["patches1"][:, 220:221]  # the centre patch, (10, 10)
+    p1, w1, w2 = row.expand(-1, 441, -1).contiguous(), ops["w1"].float(), ops["w2"].float()
+    a1, a2 = ops["a1"], ops["a2"]
+    c1 = (MIDPOINT - (sequential(row.float(), w1) * a1).double()).float()
+    x1 = torch.relu(sequential(p1.float(), w1) * a1 + c1).to(torch.bfloat16).float()
+    x1p = extract_patches(x1.reshape(B, 21, 21, 16), 4, 2).reshape(B, 121, 256)
+    ops = dict(ops, patches1=p1, c1=c1)
+    if impl == "fused":
+        ops["c2"] = (MIDPOINT - (sequential(x1p[:, 60:61], w2) * a2).double()).float()  # (5, 5): taps inside x1
+        x2 = torch.relu(sequential(x1p, w2) * a2 + ops["c2"]).to(torch.bfloat16).float()
+        h3 = torch.bmm(x2.reshape(B, 1, -1), ops["wf"].float())[:, 0]
+    else:
+        x2 = torch.relu(torch.bmm(x1p, w2) * a2 + ops["c2"])
+        h3 = torch.einsum("bpc,bcpn->bn", x2, ops["wf_cm"].float())
+    x3 = torch.relu(h3 * ops["a3"][:, 0] + ops["c3"][:, 0])
+    return ops, torch.bmm(x3[:, None], ops["wo"])[:, 0] + ops["bo"][:, 0]
+
+
+def check_vbn_fused(device) -> list:
+    """K4 and K6 against their plain versions on the same inputs, with the
+    stats of a reference batch of random frames. Tolerance 1e-3·max|score|:
+    both keep the bf16 roundings (x1; x2 in K6) and sum in f32, in other
+    orders (the convs on tensor cores), so a sum near a rounding boundary
+    can round one ulp the other way; dropping or swapping a rounding point
+    moves the scores by 3.7e-3·max or more (tests/test_torch_vbn_fused.py
+    TestCardTolerance). A second launch must repeat the first bit for bit.
+    Then the all-ties case, within 1e-5·max of the sequential chains, at
+    B=3 (the split) and B=133 (the persistent grid, two members a block)."""
+    import torch
+
+    from deep_neuroevolution_torch.models import VirtualBNDQN
     from deep_neuroevolution_torch.ops import fused_dqn as fk
 
     gen = torch.Generator(device=device).manual_seed(6)
@@ -912,11 +1008,9 @@ def check_vbn_fused(device) -> list:
                 sparts, _ = sm.prepare_batch_params((th, stats))
                 split_ms[dt] = cuda_ms(lambda: sm.batch_scores_parts(sparts, obs, stats), 10)
                 del sparts
-            patches1 = extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256)
             for impl, (name, plain_name) in VBN_ROUTES.items():
                 fn, plain = getattr(fk, name), getattr(fk, plain_name)
-                parts, _ = VirtualBNDQN(num_actions=na, forward_impl=impl).prepare_batch_params((th, stats))
-                ops = dict(parts["__fused__"], patches1=patches1)
+                ops = vbn_ops(impl, th, stats, obs, na)
                 y = fn(ops)
                 ref = plain(ops)
                 torch.cuda.synchronize()
@@ -926,23 +1020,52 @@ def check_vbn_fused(device) -> list:
                 require(err <= tol, f"{name} B={B} A={na}: max abs err {err} > {tol}")
                 require(bool((y[:, na:] < -1e8).all()), f"{name}: a padded action lane lost its -1e9 bias")
                 clear = check_top_actions(y[:, :na], ref[:, :na], tol, f"{name} B={B} A={na}")
+                require(torch.equal(y, fn(ops)), f"{name} B={B} A={na}: two launches differ")
+                warm(lambda: fn(ops), 0.3)
                 ms = cuda_ms(lambda: fn(ops), 20)
+                k_graph_ms = graph_ms(lambda: fn(ops))
                 plain_ms = cuda_ms(lambda: plain(ops), 3, warmup=1)
-                conv_ops = 2 * B * (441 * 256 * 16 + 121 * 256 * 32)  # bf16 products
-                fc_ops = 2 * B * 121 * 32 * 256  # x2 f32 (K4) or bf16 (K6) times bf16 weights
-                f32_ops = 2 * B * 256 * 64  # the out layer
-                ops_by = {"bfloat16": conv_ops + (fc_ops if impl == "fused" else 0),
-                          "float32": f32_ops + (fc_ops if impl == "fused1" else 0)}
-                bound_ms, bound_by = bound(nbytes(*ops.values(), y), ops_by)
+                bound_ms, bound_by = vbn_bound(impl, ops, y)
                 row = dict(B=B, num_actions=na, max_abs_err=err, tol=tol, argmax_rows_checked=clear, ms=ms,
-                           plain_ms=plain_ms, split_ms=split_ms["float32"], split_bf16_ms=split_ms["bfloat16"],
-                           library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                           graph_ms=k_graph_ms, plain_ms=plain_ms, split_ms=split_ms["float32"],
+                           split_bf16_ms=split_ms["bfloat16"], library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                           bound_over_graph_ms=bound_ms / k_graph_ms)
                 print(f"{name} " + json.dumps(row), flush=True)
                 rows.append(dict(row, name=name))
-                del parts, ops, y, ref
-            del th, stats, obs, patches1
+                del ops, y, ref
+            del th, stats, obs
             torch.cuda.empty_cache()
+    for impl, (name, _) in VBN_ROUTES.items():
+        fn = getattr(fk, name)
+        for B in (3, 133):
+            ops, want = vbn_all_ties_case(impl, B, device)
+            y = fn(ops)[:, :4]
+            torch.cuda.synchronize()
+            err, tol = float((y - want[:, :4]).abs().max()), 1e-5 * float(want[:, :4].abs().max())
+            print(f"{name}_all_ties " + json.dumps(dict(B=B, max_abs_err=err, tol=tol)), flush=True)
+            require(err <= tol, f"{name} all-ties case B={B}: max abs err {err} > {tol}")
+            del ops, want, y
     return rows
+
+
+def time_vbn_by_batch(device, impl: str, by_batch: dict) -> dict:
+    """K4 or K6 at each batch size an ES generation launched it with, on
+    perturbed members, checked against its plain version and timed."""
+    import torch
+
+    from deep_neuroevolution_torch.ops import fused_dqn as fk
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    ref_frames = torch.rand((128, 84, 84, 4), generator=gen, device=device)
+    name, plain_name = VBN_ROUTES[impl]
+    fn, plain = getattr(fk, name), getattr(fk, plain_name)
+
+    def make_call(B):
+        ops = vbn_random_ops(impl, B, gen, device, ref_frames)
+        return lambda: fn(ops), lambda: plain(ops)
+
+    # as phase 9: 1e-3·max|score| over the 4 actions
+    return time_by_batch(name, by_batch, make_call, 1e-3, lanes=4)
 
 
 def run_es_route(device, impl: str) -> dict:
@@ -975,6 +1098,8 @@ def run_es_route(device, impl: str) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_counters()
+        by_batch = ({B: n for B, n in sorted(kernel_counters()[VBN_ROUTES[impl][0]].launches_by_batch.items())}
+                    if impl in VBN_ROUTES else {})
         # one more pass of the eval episodes alone, for their share of the generation
         t0 = time.perf_counter()
         tr._host_eval(tr._draw_eval_seed())
@@ -985,7 +1110,10 @@ def run_es_route(device, impl: str) -> dict:
     print("launches " + json.dumps(launches), flush=True)
     name = VBN_ROUTES[impl][0] if impl in VBN_ROUTES else "population_linear"
     require(launches[name] > 0, f"forward_impl={impl!r} never launched {name}")
-    return dict(trainer=tr, seconds=seconds, launches=launches, eval_seconds=eval_seconds)
+    if impl in VBN_ROUTES:
+        print(f"{name}_launches_by_batch " + json.dumps(by_batch), flush=True)
+        require(sum(by_batch.values()) == launches[name], f"{name}'s launches by batch size do not add up")
+    return dict(trainer=tr, seconds=seconds, launches=launches, eval_seconds=eval_seconds, by_batch=by_batch)
 
 
 def check_es_route(run: dict, impl: str) -> None:
@@ -1263,7 +1391,7 @@ def main() -> int:
 
     with Phase("K4/K6 vbn_dqn_fused"):
         vbn = check_vbn_fused(device)
-    route_launches = {}
+    route_launches, route_by_batch, route_times = {}, {}, {}
     for impl in (*VBN_ROUTES, "split"):
         with Phase(f"ES generation, {impl}"):
             es_run = run_es_route(device, impl)
@@ -1276,8 +1404,12 @@ def main() -> int:
             eval_return_mean=float(st.eval_returns.mean()), eval_seconds=es_run["eval_seconds"],
         )), flush=True)
         route_launches[impl] = es_run["launches"]
+        route_by_batch[impl] = es_run["by_batch"]
         del es_run
         torch.cuda.empty_cache()
+        if impl in VBN_ROUTES:
+            with Phase(f"{VBN_ROUTES[impl][0]} at the ES generation's batch sizes"):
+                route_times[impl] = time_vbn_by_batch(device, impl, route_by_batch[impl])
 
     from deep_neuroevolution_torch.ops.noise import NoiseTable
 
@@ -1324,6 +1456,14 @@ def main() -> int:
     k5_row = k5[0]
     k4_row, k6_row = (next(r for r in vbn if (r["name"], r["B"], r["num_actions"]) == (VBN_ROUTES[i][0], 128, 4))
                       for i in ("fused1", "fused"))
+
+    def vbn_extra(impl, row):
+        """K4's or K6's graph time at B=128, its launches by batch size in
+        the route's generation and its graph time at each."""
+        return dict(graph_ms=row["graph_ms"], split_ms=row["split_ms"],
+                    launches_by_batch={str(b): n for b, n in route_by_batch[impl].items()},
+                    graph_ms_by_batch={str(r["B"]): r["graph_ms"] for r in route_times[impl]["rows"]})
+
     kernels = [
         entry("population_linear", "deep_neuroevolution_torch/csrc/population_linear.cu",
               "deep_neuroevolution_tpu/ops/pallas_forward.py:59", es_launches, k1, variant=k1["variant"]),
@@ -1339,14 +1479,14 @@ def main() -> int:
               graph_ms=k3_row["graph_ms"], split_ms=k3_row["split_ms"]),
         entry("vbn_dqn_fused1_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:147", route_launches["fused1"], k4_row,
-              split_ms=k4_row["split_ms"]),
+              **vbn_extra("fused1", k4_row)),
         entry("dqn_conv_chain_fused", "deep_neuroevolution_torch/csrc/dqn_conv_chain.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:422", rs_launches, k5_row,
               graph_ms=k5_row["graph_ms"], einsum_ms=k5_row["einsum_ms"],
               launches_by_batch={str(b): n for b, n in k5_by_batch.items()}),
         entry("vbn_dqn_fused_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:471", route_launches["fused"], k6_row,
-              split_ms=k6_row["split_ms"]),
+              **vbn_extra("fused", k6_row)),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // Shared-memory rings fed by the TMA's 1D bulk copy (`cp.async.bulk`), for
-// kernels K1 (population_linear.cu), K3 (large_dqn_fused.cu) and K5
-// (dqn_conv_chain.cu).
+// kernels K1 (population_linear.cu), K3 (large_dqn_fused.cu), K5
+// (dqn_conv_chain.cu) and K4/K6 (vbn_dqn_fused.cu).
 //
 // A ring is a few stages of shared memory, each guarded by a pair of
 // mbarriers: `full[s]` completes when the stage's bulk copies have landed
@@ -9,7 +9,7 @@
 // warp). A producer thread waits on `empty`, announces the bytes on `full`
 // and starts the copies; the consumers wait on `full`, read, and arrive on
 // `empty`. The copies need no tensor map: source, destination and size
-// are multiples of 16 bytes. `Ring` below wraps the pattern for K3 and K5;
+// are multiples of 16 bytes. `Ring` below wraps the pattern for K3-K6;
 // K1 keeps its own loop over the barriers.
 //
 // A consumer runs `fence_proxy_async` before it arrives on `empty`: its
@@ -77,7 +77,7 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // A ring of S stages of BYTES each at `base`, for one producer thread and
-// warps of consumers (K3's and K5's). Item i of a block's stream sits in
+// warps of consumers (K3's to K6's). Item i of a block's stream sits in
 // stage i % S, in its (i / S)-th use, so the counts may run on from one
 // unit of work to the next (K5's members).
 template <int S, int BYTES>

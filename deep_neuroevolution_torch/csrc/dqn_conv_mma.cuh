@@ -1,10 +1,10 @@
 // Tensor-core conv stages of the DQNs, for kernels K3 (large_dqn_fused.cu,
-// the LargeDQN) and K5 (dqn_conv_chain.cu, the LargeDQN and the SmallDQN in
-// bfloat16).
+// the LargeDQN), K5 (dqn_conv_chain.cu, the LargeDQN and the SmallDQN in
+// bfloat16) and K4/K6 (vbn_dqn_fused.cu, the VBN-DQN's SmallDQN geometry).
 //
-// The same SAME convs as dqn_conv.cuh (conv1 k8 s4 from im2col patches
-// [441, 256], conv2 k4 s2 21 → 11, conv3 k3 s1 11 → 11, K in (i, j, c)
-// order, weights [K, CO] bf16), with each product on
+// The SAME convs of dqn_conv.cuh's geometries (conv1 k8 s4 from im2col
+// patches [441, 256], conv2 k4 s2 21 → 11, conv3 k3 s1 11 → 11, K in
+// (i, j, c) order, weights [K, CO] bf16), with each product on
 // `mma.sync.aligned.m16n8k16` (bf16 × bf16 → float32). The products of two
 // bf16 values are exact in float32, so only the order of each sum changes.
 //

@@ -127,6 +127,8 @@ def load() -> ctypes.CDLL:
     for name in ("nevo_vbn_dqn_fused1", "nevo_vbn_dqn_fused"):
         getattr(lib, name).argtypes = [vp] * 13 + [i32, vp]
         getattr(lib, name).restype = i32
+        getattr(lib, name + "_split").argtypes = [vp] * 15 + [i32, i32, vp]
+        getattr(lib, name + "_split").restype = i32
     lib.nevo_cuda_error_string.argtypes = [i32]
     lib.nevo_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -137,6 +139,13 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         msg = lib.nevo_cuda_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, which the launch plans of K1
+    and K4/K6 divide their work over."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def current_stream(device: torch.device) -> int:

@@ -9,9 +9,11 @@ The counterpart of the JAX package's ops/pallas_fused_dqn.py:
   f32;
 * ``vbn_dqn_fused1_scores`` (K4) and ``vbn_dqn_fused_scores`` (K6): the
   whole VBN small DQN forward, each normalization folded into a scale a and
-  shift c, one member per CUDA block (csrc/vbn_dqn_fused.cu), on the layout
-  that ``VirtualBNDQN.fuse_prepare`` builds (style 'one' for K4, 'two' for
-  K6) → padded scores ``[B, 64]`` f32;
+  shift c (csrc/vbn_dqn_fused.cu: convs on tensor cores, every byte
+  streamed through a ring of bulk copies, on a persistent grid or, at
+  small B, with each member split over several blocks as ``vbn_plan``
+  says), on the layout that ``VirtualBNDQN.fuse_prepare`` builds (style
+  'one' for K4, 'two' for K6) → padded scores ``[B, 64]`` f32;
 * ``dqn_conv_chain_fused`` (K5): the conv stack of SmallDQN (2 convs) or
   LargeDQN (3 convs) alone → ``[B, 121, c_out]`` f32
   (csrc/dqn_conv_chain.cu: a persistent grid whose blocks stream their
@@ -29,7 +31,8 @@ product and a rounded sum, in the kernel as here.
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Tuple
 
 import torch
 
@@ -50,6 +53,46 @@ VBN_OPS = ("patches1", "w1", "a1", "c1", "w2", "a2", "c2", "wf_cm", "a3", "c3", 
 _VBN_BF16 = ("patches1", "w1", "w2", "wf_cm", "wf")  # read as 16-byte vectors; the rest f32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GEOMETRIES = ((16, 32, 0), (32, 64, 64))  # SmallDQN, LargeDQN (c1, c2, c3)
+
+FC_ROWS = P2 * C2  # the VBN-DQN fc's rows: 3872
+# K4/K6 split each member over S = sm_count // B blocks (S ≥ 2) at
+# B ≤ SPLIT_MAX_B, and run one block an SM over whole members above it.
+# scripts/torch_k46_ab.py --sweep on an H100 80GB HBM3 (132 SMs, 700 W),
+# CUDA-graph ms, one block a member against the split: K4 0.0548 / 0.0458
+# at B=33, 0.0559 / 0.0543 at 44, 0.0566 / 0.0598 at 50; K6 0.0607 /
+# 0.0581 at 44, 0.0610 / 0.0642 at 50.
+SPLIT_MAX_B = 44
+
+
+@dataclasses.dataclass(frozen=True)
+class VbnPlan:
+    """How K4 and K6 launch at B members on a card with ``sm_count`` SMs.
+    ``split`` = S: blocks a member. S = 1: a persistent grid of ``grid``
+    blocks, block i taking members i, i + grid, ... S ≥ 2: ``grid`` = B·S
+    blocks, block i being rank i % S of member i // S, which streams the fc
+    rows ``rows(i % S)`` and writes their 256 sums to partials[b, s]; the
+    member's last block to finish sums its S partial rows in rank order
+    (csrc/vbn_dqn_fused.cu's ``unit``)."""
+
+    B: int
+    sm_count: int
+    split: int
+    grid: int
+
+    def rows(self, s: int) -> Tuple[int, int]:
+        return s * FC_ROWS // self.split, (s + 1) * FC_ROWS // self.split
+
+
+def vbn_plan(B: int, sm_count: int) -> VbnPlan:
+    """K4's and K6's launch at B members (pure Python, as the C entry
+    points compute it)."""
+    if B <= 0:
+        return VbnPlan(B, sm_count, 1, 0)
+    S = sm_count // B if B <= SPLIT_MAX_B else 1
+    if S >= 2:
+        return VbnPlan(B, sm_count, S, B * S)
+    per = -(-B // sm_count)  # ⌈B / SMs⌉ members a block at most
+    return VbnPlan(B, sm_count, 1, -(-B // per))
 
 
 def _conv(x: torch.Tensor, hw: int, k: int, s: int, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -155,16 +198,27 @@ def _check_vbn(ops: Dict[str, torch.Tensor], names) -> int:
 
 def _vbn_launch(fn, ops: Dict[str, torch.Tensor], names, plain, symbol: str) -> torch.Tensor:
     B = _check_vbn(ops, names)
-    dev = _check_common({k: ops[k] for k in names}, [k for k in names if k in _VBN_BF16])
+    # the bulk copies' sources: the bf16 operands and wo
+    dev = _check_common({k: ops[k] for k in names}, [k for k in names if k in _VBN_BF16 or k == "wo"])
     if dev.type == "cpu":
         return plain(ops)
     out = torch.empty((B, NOUT), dtype=torch.float32, device=dev)
     if B == 0:
         return out
     lib = _cuda_build.load()
-    err = getattr(lib, symbol)(*(ops[k].data_ptr() for k in names), out.data_ptr(), B, _cuda_build.current_stream(dev))
+    ptrs = [ops[k].data_ptr() for k in names]
+    stream = _cuda_build.current_stream(dev)
+    plan = vbn_plan(B, _cuda_build.sm_count(dev))
+    if plan.split == 1:
+        err = getattr(lib, symbol)(*ptrs, out.data_ptr(), B, stream)
+    else:
+        partials = torch.empty((B, plan.split, FC), dtype=torch.float32, device=dev)
+        counters = torch.zeros(B, dtype=torch.int32, device=dev)  # a memset node under graph capture
+        err = getattr(lib, symbol + "_split")(*ptrs, out.data_ptr(), partials.data_ptr(), counters.data_ptr(), B,
+                                              plan.split, stream)
     _cuda_build.check(lib, err, fn.__name__)
     fn.launches += 1
+    fn.launches_by_batch[B] = fn.launches_by_batch.get(B, 0) + 1
     return out
 
 
@@ -176,6 +230,8 @@ def vbn_dqn_fused1_scores(ops: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 vbn_dqn_fused1_scores.launches = 0  # kernel launches since the caller last set it to 0
+# the same launches by batch size B; a caller that zeroes .launches clears it too
+vbn_dqn_fused1_scores.launches_by_batch = {}
 
 
 def vbn_dqn_fused_scores(ops: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -186,6 +242,8 @@ def vbn_dqn_fused_scores(ops: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 vbn_dqn_fused_scores.launches = 0  # kernel launches since the caller last set it to 0
+# the same launches by batch size B; a caller that zeroes .launches clears it too
+vbn_dqn_fused_scores.launches_by_batch = {}
 
 
 def large_dqn_fused_scores(ops: Dict[str, torch.Tensor]) -> torch.Tensor:

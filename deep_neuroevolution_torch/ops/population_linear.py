@@ -154,11 +154,6 @@ def _device_table(p: Plan, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(p.table()).to(device)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def population_linear_plain(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bk,bkn->bn", x.float(), W.float())
 
@@ -178,7 +173,7 @@ def plan_for(x: torch.Tensor, W: torch.Tensor) -> Plan:
     """The plan ``population_linear`` launches for these CUDA tensors."""
     B, K, N = W.shape
     aligned = x.data_ptr() % 16 == 0 and W.data_ptr() % 16 == 0
-    return plan(B, K, N, _DTYPE_NAME[x.dtype], _sm_count(x.device), aligned)
+    return plan(B, K, N, _DTYPE_NAME[x.dtype], _cuda_build.sm_count(x.device), aligned)
 
 
 def population_linear(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:

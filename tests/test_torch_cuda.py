@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import MIDPOINT, vbn_all_ties_case, vbn_random_ops
+from chip_smoke import sequential as _sequential
 from deep_neuroevolution_torch.algos import es
 from deep_neuroevolution_torch.algos import ga
 from deep_neuroevolution_torch.algos.rollout_host import collect_ref_batch_host
@@ -411,19 +413,6 @@ def test_conv_chain_on_engine_frames(cuda_device, cls, dtype):
     assert torch.equal(y, again)
 
 
-def _sequential(a, w):
-    """a · w ([B, M, K] × [B, K, N]) as bf16 K5 recomputes a near tie: a
-    float32 chain in k order from 0. a and w hold bf16 values, so each
-    product is exact in float32 and each add rounds once, as an FMA does."""
-    out = torch.zeros(a.shape[0], a.shape[1], w.shape[2], device=a.device)
-    for k in range(a.shape[2]):
-        out = out + a[..., k:k + 1] * w[:, k:k + 1, :]
-    return out
-
-
-MIDPOINT = 1.0 + 2.0 ** -8  # halfway between the bf16 values 1 and 1 + 2^-7
-
-
 def k5_all_ties_case(cls, B, device):
     """bf16 K5 operands on which every value of x1, and every value of the
     LargeDQN's x2 clear of the padding, lies within a few float32 ulps of a
@@ -491,31 +480,146 @@ def _vbn_ops(impl, B, num_actions, seed, device):
     return dict(parts["__fused__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
 
 
+# K4 and K6 at B = 1, 4 (an eval-episode group), 5 and 8, on both sides of
+# the split's switch point, and at an ES round's 128 and 256
+VBN_BATCHES = [1, 4, 5, 8, fk.SPLIT_MAX_B, fk.SPLIT_MAX_B + 1, 128, 256]
+
+
 @pytest.mark.parametrize("num_actions", [4, 18])
-@pytest.mark.parametrize("B", [1, 5, 128])
+@pytest.mark.parametrize("B", VBN_BATCHES)
 @pytest.mark.parametrize("impl", ["fused1", "fused"])
 def test_vbn_fused_matches_plain(cuda_device, impl, B, num_actions):
     """K4 and K6 against their plain versions on the card: within
     1e-3·max|score| (the bf16 roundings of x1, and of x2 in K6, kept; sums
-    in f32 in other orders; a dropped or swapped rounding moves the scores
-    by 3.7e-3·max or more, TestCardTolerance in test_torch_vbn_fused.py),
-    equal argmax away from near ties, padded lanes at −1e9."""
+    in f32 in other orders, the convs on tensor cores with near ties
+    recomputed as sequential chains; a dropped or swapped rounding moves
+    the scores by 3.7e-3·max or more, TestCardTolerance in
+    test_torch_vbn_fused.py), equal argmax away from near ties, padded
+    lanes at −1e9; the launch counted, by batch size too."""
     fn, plain = VBN_KERNELS[impl]
     ops = _vbn_ops(impl, B, num_actions, B + num_actions, cuda_device)
     before = fn.launches
+    before_b = fn.launches_by_batch.get(B, 0)
     y = fn(ops)
     ref = plain(ops)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    assert fn.launches == before + 1 and fn.launches_by_batch[B] == before_b + 1
     assert y.shape == (B, 64) and y.dtype == torch.float32
     tol = 1e-3 * float(ref[:, :num_actions].abs().max())
     err = float((y[:, :num_actions] - ref[:, :num_actions]).abs().max())
-    print(f"{fn.__name__} B={B} A={num_actions}: max abs err {err} (tol {tol})")  # shown with pytest -s
+    plan = fk.vbn_plan(B, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    print(f"{fn.__name__} B={B} A={num_actions} split {plan.split}: max abs err {err} (tol {tol})")  # pytest -s
     torch.testing.assert_close(y[:, :num_actions], ref[:, :num_actions], rtol=0, atol=tol)
     assert bool((y[:, num_actions:] < -1e8).all())
     top2 = ref[:, :num_actions].topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > tol
     assert torch.equal(y.argmax(-1)[clear], ref.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("B", [1, 4, 8, fk.SPLIT_MAX_B, fk.SPLIT_MAX_B + 1, 128, 256])
+@pytest.mark.parametrize("impl", ["fused1", "fused"])
+def test_vbn_fused_repeats_bit_for_bit(cuda_device, impl, B):
+    """Every sum of K4 and K6 runs in a fixed order, the split's partial
+    rows summed in rank order by whichever block comes last: ten launches
+    on the same inputs give the same scores, bit for bit."""
+    fn, _ = VBN_KERNELS[impl]
+    ops = _vbn_ops(impl, B, 4, B, cuda_device)
+    first = fn(ops)
+    ys = [fn(ops) for _ in range(10)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, y) for y in ys)
+
+
+@pytest.mark.parametrize("B", [4, 128])
+@pytest.mark.parametrize("impl", ["fused1", "fused"])
+def test_vbn_fused_in_a_cuda_graph(cuda_device, impl, B):
+    """Captured in a CUDA graph (at B = 4 the split's partial rows come from
+    the graph's pool and its counters are zeroed by a captured memset) and
+    replayed three times, the scores overwritten in between, K4 and K6
+    repeat an eager launch bit for bit: the counters start from zero on
+    every replay, so a last block runs each member's head every time."""
+    fn, _ = VBN_KERNELS[impl]
+    ops = _vbn_ops(impl, B, 4, B, cuda_device)
+    eager = fn(ops)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture, as torch.cuda.graph asks
+        fn(ops)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = fn(ops)
+    for _ in range(3):
+        y.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)
+
+
+@pytest.mark.parametrize("seed", range(200, 206))
+@pytest.mark.parametrize("B", [64, 128])
+@pytest.mark.parametrize("impl", ["fused1", "fused"])
+def test_vbn_fused_over_seeds(cuda_device, impl, B, seed):
+    """K4 and K6 against their plain versions within 1e-3·max|score| at
+    B = 64 (the split) and 128 (the persistent grid), members, reference
+    frames and frames drawn on the card from six seeds: the check that
+    caught bf16 K5's x1 flips, which a CPU emulation at B = 4 missed."""
+    fn, plain = VBN_KERNELS[impl]
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    ops = vbn_random_ops(impl, B, gen, cuda_device, torch.rand((16, 84, 84, 4), generator=gen, device=cuda_device))
+    y = fn(ops)[:, :4]
+    ref = plain(ops)[:, :4]
+    torch.cuda.synchronize()
+    tol = 1e-3 * float(ref.abs().max())
+    print(f"{fn.__name__} B={B} seed {seed}: max abs err {float((y - ref).abs().max())} (tol {tol})")
+    torch.testing.assert_close(y, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("impl", ["fused1", "fused"])
+def test_vbn_fused_on_engine_frames(cuda_device, impl):
+    """K4 and K6 on frames from the ToyCatch engine (mostly blank, so
+    patches and their near ties repeat), B = 128 perturbed members with the
+    stats of the same frames: against the plain version within
+    1e-3·max|score|, and a second launch bit for bit."""
+    B = 128
+    env = AtariEnv("toy", batch_size=16, num_threads=2)
+    try:
+        frames = collect_ref_batch_host(env, 11, cuda_device, batch_size=B)
+    finally:
+        env.close()
+    model = VirtualBNDQN(num_actions=4, forward_impl=impl)
+    g = torch.Generator().manual_seed(11)
+    th = (model.init_theta(g)[None] + 0.02 * torch.randn(B, model.num_params, generator=g)).to(cuda_device)
+    parts, _ = model.prepare_batch_params((th, model.batch_ref_stats(th, frames)))
+    ops = dict(parts["__fused__"], patches1=extract_patches(frames.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+    fn, plain = VBN_KERNELS[impl]
+    y = fn(ops)
+    ref = plain(ops)
+    again = fn(ops)
+    torch.cuda.synchronize()
+    tol = 1e-3 * float(ref[:, :4].abs().max())
+    print(f"{fn.__name__} engine frames B={B}: max abs err {float((y - ref)[:, :4].abs().max())} (tol {tol})")
+    torch.testing.assert_close(y[:, :4], ref[:, :4], rtol=0, atol=tol)
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("B", [3, 133])
+@pytest.mark.parametrize("impl", ["fused1", "fused"])
+def test_vbn_fused_recomputes_every_value_past_the_tie_list(cuda_device, impl, B):
+    """When a conv notes more near ties than the list holds, K4 and K6
+    recompute every value of that conv as the sequential chain: on
+    chip_smoke.py's vbn_all_ties_case (every x1 value, and K6's inner x2
+    values, next to a bf16 midpoint; tests/test_torch_vbn_fused.py checks
+    on the CPU that the tensor cores' order rounds whole channels apart
+    there) the scores match the chains' within 1e-5·max|score|, at B = 3
+    (the split) and 133 (the persistent grid, two members a block)."""
+    fn, _ = VBN_KERNELS[impl]
+    ops, want = vbn_all_ties_case(impl, B, cuda_device)
+    y = fn(ops)[:, :4]
+    torch.cuda.synchronize()
+    tol = 1e-5 * float(want[:, :4].abs().max())
+    print(f"{fn.__name__} all ties B={B}: max abs err {float((y - want[:, :4]).abs().max())} (tol {tol})")
+    torch.testing.assert_close(y, want[:, :4], rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("impl", ["fused1", "fused"])
@@ -528,6 +632,9 @@ def test_vbn_fused_wrappers_reject(cuda_device, impl):
     before = fn.launches
     with pytest.raises(ValueError, match="aligned"):
         fn(dict(ops, **{wkey: buf[1:].view(ops[wkey].shape)}))
+    wo_buf = torch.zeros(ops["wo"].numel() + 1, dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="wo must start 16-byte aligned"):  # a bulk copy's source too
+        fn(dict(ops, wo=wo_buf[1:].view(ops["wo"].shape)))
     with pytest.raises(TypeError, match="w1"):
         fn(dict(ops, w1=ops["w1"].float()))
     with pytest.raises(ValueError, match="shape"):

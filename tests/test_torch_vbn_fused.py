@@ -3,8 +3,10 @@ models/batchnorm.py and ops/pallas_fused_dqn.py, on the CPU, from the same
 numpy inputs and the same θ: the 'full' (γ/β) affine, the 'folded' route,
 ``fuse_prepare``'s layouts, and the plain versions of kernels K4
 (vbn_dqn_fused1_scores) and K6 (vbn_dqn_fused_scores) against the JAX
-package's Pallas kernels in interpret mode. The JAX references are built
-once per module; readings print with ``pytest -s``."""
+package's Pallas kernels in interpret mode; then the card kernels' sum
+orders and near-tie recompute emulated against the limit the card tests
+use, and their launch plan. The JAX references are built once per module;
+readings print with ``pytest -s``."""
 
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from deep_neuroevolution_torch.models.core import extract_patches as t_patches
 from deep_neuroevolution_torch.ops import fused_dqn as tfk
 from deep_neuroevolution_tpu.models.batchnorm import VirtualBNDQN as JaxVBN
 from deep_neuroevolution_tpu.ops import pallas_fused_dqn as jfk
+from test_torch_dqn import _bmm_in_chunks, _bmm_sequential
 
 B = 2
 KERNELS = {"K4": ("one", "vbn_dqn_fused1_scores"), "K6": ("two", "vbn_dqn_fused_scores")}
@@ -255,23 +258,99 @@ def _forward(ops, acc, round_x1=True, x2_bf16=False, channel_major=True):
     return torch.bmm(x3[:, None], f("wo"))[:, 0] + f("bo")[:, 0]
 
 
+def _b4_ops(case, style):
+    """K4's ('one') or K6's ('two') operands at B=4: the case's two members,
+    then the same reversed and scaled by 1.01, with their own stats."""
+    th = torch.from_numpy(np.concatenate([case.thetas, case.thetas[::-1] * 1.01]))
+    obs = torch.from_numpy(np.concatenate([case.obs, case.obs[::-1]]))
+    stats = case.tm.batch_ref_stats(th, torch.from_numpy(case.ref))
+    ops = case.tm.fuse_prepare(case.tm.prepare_parts(case.tm.unflatten(th)), stats, style)
+    return dict(ops, patches1=t_patches(obs.to(torch.bfloat16), 8, 4).reshape(4, 441, 256))
+
+
+TIE_ULPS = 512  # csrc/dqn_ties.cuh kTieUlps
+MAX_TIES = 1024  # csrc/vbn_dqn_fused.cu kMaxTies: the list a conv's near ties go to
+
+
+def _near_tie(v, p):
+    """csrc/dqn_ties.cuh's Ties::note under the scale and shift: v = h·a + c
+    positive and within TIE_ULPS float32 ulps of max(|v|, |p|), p = h·a, of a
+    bf16 rounding midpoint (v's 16 bits below bf16's are 0x8000 there)."""
+    bits = v.view(torch.int32).to(torch.int64)
+    e_v = (bits >> 23) & 0xFF
+    e_m = (torch.maximum(v.abs(), p.abs()).view(torch.int32).to(torch.int64) >> 23) & 0xFF
+    window = torch.bitwise_left_shift(torch.tensor(TIE_ULPS), (e_m - e_v).clamp(0, 7))
+    return (v > 0) & (((bits & 0xFFFF) - 0x8000).abs() < window)
+
+
+def _recompute(tc, p, seq):
+    """Which value each conv rounds, per member: the sequential chain's where
+    the tensor-core value is a near tie, or everywhere once a member's conv
+    notes more than the list holds; else the tensor cores'."""
+    ties = _near_tie(tc, p)
+    every = ties.sum(dim=(1, 2), keepdim=True) > MAX_TIES
+    return torch.where(ties | every, seq, tc)
+
+
+def _first_ties_only(tc, p, seq):
+    """A kernel whose tie list dropped every entry past MAX_TIES: only a
+    member's first MAX_TIES near ties, in (p, co) order, take the chain."""
+    ties = _near_tie(tc, p).flatten(1)
+    first = ties & (ties.cumsum(1) <= MAX_TIES)
+    return torch.where(first.view_as(tc), seq, tc)
+
+
+def _sequential_only(tc, p, seq):
+    return seq
+
+
+def _conv_values(x, w, a, c):
+    """A conv's h·a + c (product and sum rounded) with h in the tensor
+    cores' order, its product h·a, and the same from the sequential chain."""
+    p = _bmm_in_chunks(x, w) * a
+    return p + c, p, _bmm_sequential(x, w) * a + c
+
+
+def _kernel_order(ops, kernel, recompute, round_x1=True):
+    """K4's or K6's card kernel emulated in float32: each conv's product in
+    the tensor cores' order (_bmm_in_chunks: chunks of 32 k, steps of 16,
+    each step summed first; conv2's two taps a chunk are its 32 consecutive
+    k), then h·a + c with the product and the sum rounded; each value that
+    is rounded to bf16 (x1, and K6's x2) from ``recompute(tc, p, seq)``,
+    which picks per value between that and the sequential chain's; x2
+    float32 in K4. The fc and the out layer in float32 (their order moves
+    the scores by float32 ulps only)."""
+    n = ops["patches1"].shape[0]
+    f = lambda k: ops[k].float()  # noqa: E731
+    x1 = torch.relu(recompute(*_conv_values(f("patches1"), f("w1"), f("a1"), f("c1"))))
+    if round_x1:
+        x1 = x1.to(torch.bfloat16).float()
+    p2 = t_patches(x1.reshape(n, 21, 21, 16), 4, 2).reshape(n, 121, 256)
+    v2, prod2, seq2 = _conv_values(p2, f("w2"), f("a2"), f("c2"))
+    if kernel == "K4":
+        h3 = torch.einsum("bpc,bcpn->bn", torch.relu(v2), f("wf_cm"))
+    else:
+        x2 = torch.relu(recompute(v2, prod2, seq2)).to(torch.bfloat16)
+        h3 = torch.bmm(x2.float().reshape(n, 1, -1), f("wf"))[:, 0]
+    x3 = torch.relu(h3 * f("a3")[:, 0] + f("c3")[:, 0])
+    return torch.bmm(x3[:, None], f("wo"))[:, 0] + f("bo")[:, 0]
+
+
 class TestCardTolerance:
     """The card limit for K4 and K6, 1e-3·max|score|, catches a kernel with
     a rounding point dropped or swapped: K4 without its bf16 rounding of
     x1 or with x2 rounded, K6 with x2 left in float32 or without the x1
     rounding, each move the scores by more than the limit, while the same
-    rounding points with float64 sums stay inside it. B=4, 18 actions."""
+    rounding points with float64 sums stay inside it, and so does the card
+    kernels' own order (tensor-core convs, near ties recomputed as
+    sequential chains). B=4, 18 actions."""
 
     @pytest.mark.parametrize("kernel", ["K4", "K6"])
     def test_rounding_changes_exceed_the_limit(self, cases, kernel):
         case = cases[(18, "full")]
         style, fn = KERNELS[kernel]
         cm = kernel == "K4"
-        th = torch.from_numpy(np.concatenate([case.thetas, case.thetas[::-1] * 1.01]))
-        obs = torch.from_numpy(np.concatenate([case.obs, case.obs[::-1]]))
-        stats = case.tm.batch_ref_stats(th, torch.from_numpy(case.ref))
-        ops = case.tm.fuse_prepare(case.tm.prepare_parts(case.tm.unflatten(th)), stats, style)
-        ops = dict(ops, patches1=t_patches(obs.to(torch.bfloat16), 8, 4).reshape(4, 441, 256))
+        ops = _b4_ops(case, style)
         na = case.tm.num_actions
         ref = getattr(tfk, fn)(ops)[:, :na].double()
         top = float(ref.abs().max())
@@ -285,3 +364,173 @@ class TestCardTolerance:
         assert same < 1e-6
         assert no_x1 > CARD_LIMIT > f64
         assert swap_x2 > CARD_LIMIT
+
+    @pytest.mark.parametrize("kernel", ["K4", "K6"])
+    def test_tensor_core_order_stays_inside_the_limit(self, cases, kernel):
+        """The card kernel's order with its rounding points and near ties
+        recomputed (_kernel_order) stays under 1e-3·max|score| against the
+        plain version and against the sequential chains that the card's
+        plain version sums at B ≥ 128; the same order with x1 not rounded
+        exceeds it."""
+        case = cases[(18, "full")]
+        style, fn = KERNELS[kernel]
+        ops = _b4_ops(case, style)
+        na = case.tm.num_actions
+        ref = getattr(tfk, fn)(ops)[:, :na]
+        top = float(ref.abs().max())
+        kern = _kernel_order(ops, kernel, _recompute)[:, :na]
+        seq = _kernel_order(ops, kernel, _sequential_only)[:, :na]
+        dropped = _kernel_order(ops, kernel, _recompute, round_x1=False)[:, :na]
+        vs_plain = float((kern - ref).abs().max()) / top
+        vs_seq = float((kern - seq).abs().max()) / float(seq.abs().max())
+        no_x1 = float((dropped - ref).abs().max()) / top
+        print(f"{kernel}: the kernel's order {vs_plain:.3g}·max against the plain version, {vs_seq:.3g}·max "
+              f"against the chains; x1 not rounded {no_x1:.3g}·max")
+        assert vs_plain < CARD_LIMIT and vs_seq < CARD_LIMIT
+        assert no_x1 > CARD_LIMIT
+
+    @pytest.mark.parametrize("kernel", ["K4", "K6"])
+    def test_near_ties_round_as_the_sequential_chain(self, cases, kernel):
+        """Every value that K4 and K6 round to bf16 (x1 in both, x2 in K6)
+        equals the sequential chain's rounding once the near ties are
+        recomputed, while the tensor-core order alone rounds some apart.
+        K5's window, 512 ulps of v itself, leaves some apart: the shift c
+        can cancel most of h·a, and the two orders' difference is a few
+        ulps of h·a, not of v. The window of 512 ulps of max(|v|, |h·a|)
+        catches them; it notes about a tenth of the positive values, inside
+        the list of MAX_TIES a member."""
+        case = cases[(18, "full")]
+        style, _ = KERNELS[kernel]
+        ops = _b4_ops(case, style)
+        n = ops["patches1"].shape[0]
+        f = lambda k: ops[k].float()  # noqa: E731
+
+        def rounded(v):
+            return torch.relu(v).to(torch.bfloat16)
+
+        def readings(x, w, a, c):
+            tc, p, seq = _conv_values(x, w, a, c)
+            fixed = _recompute(tc, p, seq)
+            ties = _near_tie(tc, p)
+            lo = (tc.view(torch.int32) & 0xFFFF) - 0x8000
+            v_window = torch.where((tc > 0) & (lo.abs() < TIE_ULPS), seq, tc)  # K5's window
+            return dict(apart=int((rounded(tc) != rounded(seq)).sum()),
+                        after=int((rounded(fixed) != rounded(seq)).sum()),
+                        after_v_window=int((rounded(v_window) != rounded(seq)).sum()),
+                        share=float(ties.sum()) / float((tc > 0).sum()), most=int(ties.sum(dim=(1, 2)).max())), fixed
+
+        r1, fixed = readings(f("patches1"), f("w1"), f("a1"), f("c1"))
+        print(f"{kernel} x1: {r1}")
+        readings_all = [r1]
+        if kernel == "K6":
+            p2 = t_patches(rounded(fixed).float().reshape(n, 21, 21, 16), 4, 2).reshape(n, 121, 256)
+            r2, _ = readings(p2, f("w2"), f("a2"), f("c2"))
+            print(f"{kernel} x2: {r2}")
+            readings_all.append(r2)
+        for r in readings_all:
+            assert r["after"] == 0 and r["share"] < 0.15 and r["most"] <= MAX_TIES
+        assert sum(r["apart"] for r in readings_all) > 0
+        assert sum(r["after_v_window"] for r in readings_all) > 0
+
+    @pytest.mark.parametrize("kernel", ["K4", "K6"])
+    def test_tie_list_overflow_case(self, kernel):
+        """chip_smoke.py's vbn_all_ties_case, which the card holds K4 and K6
+        to within 1e-5·max|score| of the sequential chains, emulated in the
+        tensor cores' order: every member's x1 (and K6's x2) notes more
+        near ties than the list holds and the tensor cores' order rounds at
+        least a whole channel of x1 apart from the chains, so a kernel that
+        recomputed only the first MAX_TIES would miss the case's scores by
+        more than that limit; the kernels' rule, every value of a conv once
+        its list overflows, meets it."""
+        from chip_smoke import vbn_all_ties_case
+
+        impl = "fused1" if kernel == "K4" else "fused"
+        ops, want = vbn_all_ties_case(impl, 2, torch.device("cpu"))
+        f = lambda k: ops[k].float()  # noqa: E731
+        tc, p, seq = _conv_values(f("patches1"), f("w1"), f("a1"), f("c1"))
+        noted = _near_tie(tc, p).sum(dim=(1, 2))
+        apart = (torch.relu(tc).to(torch.bfloat16) != torch.relu(seq).to(torch.bfloat16)).sum(dim=(1, 2))
+        want = want[:, :4]
+        top = float(want.abs().max())
+        first_only = float((_kernel_order(ops, kernel, _first_ties_only)[:, :4] - want).abs().max()) / top
+        rule = float((_kernel_order(ops, kernel, _recompute)[:, :4] - want).abs().max()) / top
+        print(f"{kernel} all ties: x1 notes {noted.tolist()}, rounds {apart.tolist()} apart; the first {MAX_TIES} "
+              f"recomputed {first_only:.3g}·max, the kernels' rule {rule:.3g}·max")
+        assert bool((noted > MAX_TIES).all()) and bool((apart >= 441).all())
+        assert rule < 1e-5 < first_only
+
+
+def _fc_kernel_order(x2, wf, plan, finish_order):
+    """The kernel's fc in float32 for one member: x2 ``[3872]`` (the fc
+    rows' multipliers), wf ``[3872, 256]``. Each of the plan's S blocks
+    walks its rows in stages of 64, row group g (of 8) taking rows g,
+    g + 8, ... of each stage and carrying its sums across stages; the
+    block sums its groups in order into partials[s]. The block that
+    finishes last (the last of ``finish_order``) sums partials[0..S-1] in
+    rank order."""
+    partials = {}
+    for s in finish_order:
+        r0, r1 = plan.rows(s)
+        groups = torch.zeros(8, wf.shape[1])
+        for q0 in range(r0, r1, 64):
+            for r in range(q0, min(q0 + 64, r1)):
+                g = (r - q0) % 8
+                groups[g] = groups[g] + x2[r] * wf[r]  # each product exact: bf16 weights, bf16 x2 in K6
+        h = torch.zeros(wf.shape[1])
+        for g in range(8):
+            h = h + groups[g]
+        partials[s] = h
+    total = torch.zeros(wf.shape[1])
+    for s in range(plan.split):
+        total = total + partials[s]
+    return total
+
+
+class TestLaunchPlan:
+    """``vbn_plan``, the launch that ops/fused_dqn.py gives K4 and K6 and
+    csrc/vbn_dqn_fused.cu's ``unit`` follows."""
+
+    @pytest.mark.parametrize("sm_count", [132, 114, 16])
+    def test_every_member_and_fc_row_once_within_the_sms(self, sm_count):
+        for B in range(0, 300):
+            p = tfk.vbn_plan(B, sm_count)
+            assert p.B == B and p.sm_count == sm_count
+            if B == 0:
+                assert p.grid == 0
+                continue
+            if p.split > 1:
+                # the split: S·B blocks, no more than the SMs, below the switch point
+                assert B <= tfk.SPLIT_MAX_B and p.split == sm_count // B and p.grid == B * p.split <= sm_count
+                bounds = [p.rows(s) for s in range(p.split)]
+                assert bounds[0][0] == 0 and bounds[-1][1] == tfk.FC_ROWS
+                assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:])) and all(r1 > r0 for r0, r1 in bounds)
+                sizes = [r1 - r0 for r0, r1 in bounds]
+                assert max(sizes) - min(sizes) <= 1
+            else:
+                # the persistent grid: block i takes members i, i + grid, ...; each
+                # takes ⌈B / SMs⌉ or one fewer, every member once
+                assert p.grid <= sm_count and p.rows(0) == (0, tfk.FC_ROWS)
+                per = [len(range(i, B, p.grid)) for i in range(p.grid)]
+                assert sum(per) == B and max(per) == -(-B // sm_count) and min(per) >= max(per) - 1
+                assert B > tfk.SPLIT_MAX_B or sm_count // B < 2
+        assert tfk.vbn_plan(4, 132).split == 33 and tfk.vbn_plan(128, 132).split == 1
+
+    def test_split_fc_sums_in_rank_order(self):
+        """At B=4 on 132 SMs (S=33), the emulated split fc gives the same
+        float32 bits whichever block finishes last, since the last one
+        sums the partials in rank order, and it agrees with one block's
+        sum (S=1) within float32 reordering."""
+        g = torch.Generator().manual_seed(3)
+        wf = torch.randn(tfk.FC_ROWS, 256, generator=g).to(torch.bfloat16).float()
+        x2 = torch.rand(tfk.FC_ROWS, generator=g).to(torch.bfloat16).float()
+        plan = tfk.vbn_plan(4, 132)
+        order = list(range(plan.split))
+        ranks = _fc_kernel_order(x2, wf, plan, order)
+        assert torch.equal(ranks, _fc_kernel_order(x2, wf, plan, order[::-1]))
+        one = _fc_kernel_order(x2, wf, tfk.vbn_plan(200, 132), [0])
+        exact = (x2.double()[:, None] * wf.double()).sum(0)
+        top = float(exact.abs().max())
+        print(f"split fc: {float((ranks.double() - exact).abs().max()) / top:.3g}·max, one block "
+              f"{float((one.double() - exact).abs().max()) / top:.3g}·max from float64")
+        assert float((ranks.double() - exact).abs().max()) < 1e-5 * top
+        assert float((one.double() - exact).abs().max()) < 1e-5 * top
