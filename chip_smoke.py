@@ -10,8 +10,9 @@ ends:
 1. device and build: the card's name and power limit; nvcc builds the
    kernels and g++ the host engine, side by side;
 2. kernel K1 (population_linear) against its plain PyTorch version, float32
-   and bfloat16, at the population fc's shapes (B=256, 128 and the eval
-   episodes' 4), each on the bulk variant, beside one ``torch.bmm``;
+   and bfloat16, at the population fc's shapes (B=256, 128, the eval
+   episodes' 4 and NS-ES's mean-BC episodes' 1), each on the bulk variant,
+   beside one ``torch.bmm``;
 3. kernel K2 (noise_gradient) against its plain version at the main
    path's shape (256 pairs on a 25M-float table) and at 2500 and 256 pairs
    on the reference's 250M-float table, with unaligned offsets and one
@@ -72,7 +73,25 @@ ends:
    timed on the generation's own offsets and weights (256 pairs, D = 498);
 15. the same for configurations/es_gym_config.json (CartPole,
    SimpleClassifier): population 5000, cutoff 5000, graphs against eager;
-   K2 at 2500 pairs, D = 386.
+   K2 at 2500 pairs, D = 386;
+16. three NS-ES iterations of configurations/maze_nses.json whole (256
+   episodes, M = 3 parents, k = 10, novelty_prob) on phase 13's table,
+   through the Python API: each iteration's novelty of its 256 BCs,
+   computed on the card, must equal the CPU's plain computation against
+   the same archive snapshot within rtol 1e-6; K2 launches once an
+   iteration and each g matches its plain version; the archive holds
+   3 + 3 points; every parent's θ stays finite. Seconds and env steps/s
+   per iteration; K2 timed on the last iteration's offsets (128 × 498);
+17. two iterations each of configurations/frostbite_nses.json and
+   frostbite_nsres.json through the loader (Frostbite → ToyCatch with
+   EpisodicLife, 256 slots, the VBN-DQN at full width, the per-step RAM
+   trajectory BC): K1 must launch at B=128 (the pipeline groups) and B=1
+   (the parents' mean-BC episodes), K2 once an iteration (50 or 128 pairs
+   × 1,004,852), each g against its plain version; a small forward on the
+   card matches the CPU's; each rollout's novelty equals a float64 plain
+   recomputation from its trajectory. Frames/s and the seconds of the
+   trajectory novelty per iteration; K2 timed on the last iteration's
+   offsets. Nothing is cut but the game.
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -82,6 +101,7 @@ numbers, and the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -248,9 +268,10 @@ def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
 
 # K1 at the VBN-DQN's fc: B=256 is its shape with one group of 256 slots;
 # B=128 is what each of the ES generation's two pipeline groups gives it;
-# B=4 is an eval-episode group's (8 slots, two groups)
+# B=4 is an eval-episode group's (8 slots, two groups); B=1 a mean-BC
+# episode's of NS-ES on the host engine
 K1_CASES = ((256, 3872, 256, "float32"), (256, 3872, 256, "bfloat16"), (128, 3872, 256, "float32"),
-            (4, 3872, 256, "float32"))
+            (4, 3872, 256, "float32"), (1, 3872, 256, "float32"))
 
 
 def check_population_linear(device, cases=K1_CASES) -> dict:
@@ -534,6 +555,7 @@ def zero_counters() -> None:
         f.launches = 0
     k1 = kernel_counters()["population_linear"]
     k1.bulk_launches = k1.general_launches = 0
+    k1.launches_by_batch.clear()
     for name in ("large_dqn_fused_scores", "dqn_conv_chain_fused", "vbn_dqn_fused1_scores", "vbn_dqn_fused_scores"):
         kernel_counters()[name].launches_by_batch.clear()
 
@@ -1158,20 +1180,12 @@ def check_es_route(run: dict, impl: str) -> None:
 DEVICE_CONFIGS = {"maze": "maze_es.json", "cartpole": "es_gym_config.json"}
 
 
-def run_device_es(device, name: str, table) -> dict:
-    """One ES generation of a device-env configuration at its full size,
-    through the Python API (``config.load_experiment``, then ``train``), on
-    the reference's 250M-float table that the process built once. Records
-    K2's offsets and weights as the generation hands them over."""
-    import torch
-
+@contextlib.contextmanager
+def record_k2():
+    """The (offsets, weights) that ES trainers hand K2, in a list, while
+    the context is open."""
     from deep_neuroevolution_torch.algos import es
-    from deep_neuroevolution_torch.utils import config
 
-    exp = json.loads((ROOT / "configurations" / DEVICE_CONFIGS[name]).read_text())
-    tr = config.load_experiment(exp, device=device, noise_table=table)
-    print(f"{name}: {type(tr.env).__name__} {type(tr.model).__name__} D={tr.model.num_params} "
-          f"{json.dumps(dataclasses.asdict(tr.config))}", flush=True)
     real, seen = es.noise_gradient, []
 
     def recorded(table_, idxs, weights, dim):
@@ -1180,6 +1194,39 @@ def run_device_es(device, name: str, table) -> dict:
 
     es.noise_gradient = recorded
     try:
+        yield seen
+    finally:
+        es.noise_gradient = real
+
+
+def check_k2(table, idx, w, dim: int) -> float:
+    """K2 on one recorded call against its plain version, within phase 3's
+    1e-5·max|g|; returns the max abs error."""
+    import torch
+
+    from deep_neuroevolution_torch.ops.noise_gradient import noise_gradient, noise_gradient_plain
+
+    g, ref = noise_gradient(table, idx, w, dim), noise_gradient_plain(table, idx, w, dim)
+    torch.cuda.synchronize()
+    err, tol = float((g - ref).abs().max()), 1e-5 * float(ref.abs().max())
+    require(bool(torch.isfinite(g).all()) and err <= tol, f"noise_gradient B={idx.shape[0]} D={dim}: {err} > {tol}")
+    return err
+
+
+def run_device_es(device, name: str, table) -> dict:
+    """One ES generation of a device-env configuration at its full size,
+    through the Python API (``config.load_experiment``, then ``train``), on
+    the reference's 250M-float table that the process built once. Records
+    K2's offsets and weights as the generation hands them over."""
+    import torch
+
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / DEVICE_CONFIGS[name]).read_text())
+    tr = config.load_experiment(exp, device=device, noise_table=table)
+    print(f"{name}: {type(tr.env).__name__} {type(tr.model).__name__} D={tr.model.num_params} "
+          f"{json.dumps(dataclasses.asdict(tr.config))}", flush=True)
+    with record_k2() as seen:
         zero_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1187,8 +1234,6 @@ def run_device_es(device, name: str, table) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_counters()
-    finally:
-        es.noise_gradient = real
     print("launches " + json.dumps(launches), flush=True)
     require(launches["noise_gradient"] == len(seen) == 1, f"{name}: K2 launched {launches['noise_gradient']} times")
     return dict(trainer=tr, seconds=seconds, launches=launches, idx=seen[0][0], w=seen[0][1])
@@ -1296,6 +1341,157 @@ def maze_teacher_forced(tr, members: int = 8) -> dict:
         require(errs[k] <= tol, f"maze: card vs CPU {k} max abs err {errs[k]} > {tol}")
     require(moved > 0, "maze: no member moved")
     return errs
+
+def k2_path_row(launches: dict, row: dict) -> dict:
+    """K2's launches on a path and its numbers at that path's shape."""
+    return dict(launches=launches["noise_gradient"],
+                **{k: row[k] for k in ("B", "D", "table", "ms", "graph_ms", "bound_ms", "bound_by", "l2_floor_ms",
+                                       "plain_ms", "library_ms", "max_abs_err")})
+
+
+# phases 16 and 17: NS-ES on the maze, whole, and on the host engine (the
+# game cut to ToyCatch), on phase 13's table
+NS_MAZE, NS_MAZE_ITERATIONS = "maze_nses.json", 3
+NS_HOST, NS_HOST_ITERATIONS = ("frostbite_nses.json", "frostbite_nsres.json"), 2
+
+
+def run_maze_ns(device, table) -> dict:
+    """NS_MAZE_ITERATIONS iterations of maze_nses.json through the Python
+    API; each iteration's card novelty against the CPU's plain computation
+    of the same BCs and archive snapshot (rtol 1e-6)."""
+    import torch
+
+    from deep_neuroevolution_torch.ops import novelty
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / NS_MAZE).read_text())
+    zero_counters()
+    tr = config.load_experiment(exp, device=device, noise_table=table)
+    print(f"maze_ns: {type(tr.env).__name__} {type(tr.model).__name__} D={tr.model.num_params} "
+          f"{json.dumps(dataclasses.asdict(tr.config))}", flush=True)
+    rows = []
+    with record_k2() as seen:
+        for _ in range(NS_MAZE_ITERATIONS):
+            snap = tr.archive  # archive_add leaves it as it was
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = tr.train_step()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            n = st.novelty.shape[0]
+            cpu = novelty.novelty_vs_archive(novelty.Archive(snap.points.cpu(), snap.count.cpu()),
+                                             torch.from_numpy(st.bc.reshape(2 * n, -1)), tr.config.k).numpy()
+            cpu = cpu.reshape(n, 2)
+            rel = float(np.max(np.abs(st.novelty - cpu) / np.maximum(np.abs(cpu), 1e-30)))
+            require(np.allclose(st.novelty, cpu, rtol=1e-6, atol=0),
+                    f"maze NS: card novelty differs from the CPU's (max rel err {rel})")
+            steps = int(st.lengths.sum())
+            rows.append(dict(iteration=tr.iteration, parent=st.parent, seconds=seconds, timesteps=steps,
+                             steps_per_s=steps / seconds, return_mean=float(st.returns.mean()),
+                             novelty_mean=float(st.novelty.mean()), novelty_max_rel_err=rel,
+                             archive=tr._archive_size(), selection_probs=st.selection_probs.tolist()))
+            print("maze_ns_iteration " + json.dumps(rows[-1]), flush=True)
+            require(st.returns.shape == (128, 2) and bool((st.lengths == 400).all()),
+                    f"maze NS: returns {st.returns.shape}, lengths not 400")
+        launches = read_counters()
+    print("launches " + json.dumps({**launches, "population_linear.by_batch": by_batch_k1()}), flush=True)
+    require(launches["noise_gradient"] == len(seen) == NS_MAZE_ITERATIONS,
+            f"maze NS: K2 launched {launches['noise_gradient']} times in {NS_MAZE_ITERATIONS} iterations")
+    require(tr._archive_size() == 3 + NS_MAZE_ITERATIONS, f"maze NS: archive size {tr._archive_size()}")
+    require(all(bool(torch.isfinite(p.theta).all()) for p in tr.parents), "maze NS: a parent's θ is not finite")
+    errs = [check_k2(table.noise, idx, w, tr.model.num_params) for idx, w in seen]
+    return dict(trainer=tr, rows=rows, launches=launches, seen=seen, k2_errs=errs)
+
+
+def plain_traj_novelty(archive, bc, k: int) -> float:
+    """The length-tolerant k-NN novelty (nses.py:12-32) written out in
+    float64: the shared prefix's squared distance plus the longer tail's
+    against the shorter trajectory's last element."""
+    bc = np.asarray(bc, np.float64)
+    ds = []
+    for p in archive:
+        p = np.asarray(p, np.float64)
+        short, long_ = (p, bc) if len(p) <= len(bc) else (bc, p)
+        n = len(short)
+        ds.append(math.sqrt(float(np.sum((long_[:n] - short) ** 2)) + float(np.sum((long_[n:] - short[-1]) ** 2))))
+    return float(np.mean(np.sort(ds)[:k]))
+
+
+def by_batch_k1() -> dict:
+    from deep_neuroevolution_torch.ops.population_linear import population_linear
+
+    return {f"B={b} {v}": n for (b, v), n in sorted(population_linear.launches_by_batch.items())}
+
+
+def run_host_ns(device, name: str, table) -> dict:
+    """NS_HOST_ITERATIONS iterations of a frostbite NS configuration through
+    the loader; counters zeroed before the loader (the parents' mean-BC
+    episodes are part of the path)."""
+    import torch
+
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / name).read_text())
+    zero_counters()
+    t0 = time.perf_counter()
+    tr = config.load_experiment(exp, device=device, noise_table=table)
+    setup = time.perf_counter() - t0
+    print(f"{name}: {type(tr.env).__name__}(episodic_life={tr.env.episodic_life}, slots={tr.env.batch_size}) "
+          f"{type(tr.model).__name__} D={tr.model.num_params} {json.dumps(dataclasses.asdict(tr.config))}", flush=True)
+    novelty_seconds = []
+    real = tr._archive_novelty
+
+    def timed(bcs):
+        t = time.perf_counter()
+        out = real(bcs)
+        novelty_seconds.append(time.perf_counter() - t)
+        return out
+
+    tr._archive_novelty = timed
+    rows = []
+    try:
+        with record_k2() as seen:
+            for _ in range(NS_HOST_ITERATIONS):
+                snap = list(tr.host_archive)
+                novelty_seconds.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = tr.train_step()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                ref = np.array([plain_traj_novelty(snap, b, tr.config.k) for b in st.bc], np.float32)
+                require(np.allclose(st.novelty.T.reshape(-1), ref, rtol=1e-6, atol=0),
+                        f"{name}: novelty differs from the float64 recomputation")
+                steps = int(st.lengths.sum())
+                rows.append(dict(iteration=tr.iteration, parent=st.parent, seconds=seconds, timesteps=steps,
+                                 frames_per_s=4 * steps / seconds, episodes=int(st.lengths.size),
+                                 length_mean=float(st.lengths.mean()), length_max=int(st.lengths.max()),
+                                 return_mean=float(st.returns.mean()), novelty_mean=float(st.novelty.mean()),
+                                 novelty_seconds=novelty_seconds[:1], selection_novelty_seconds=novelty_seconds[1:],
+                                 traj_floats=int(sum(b.size for b in st.bc)), archive=tr._archive_size()))
+                print(f"{name.split('.')[0]}_iteration " + json.dumps(rows[-1]), flush=True)
+            launches = read_counters()
+    finally:
+        del tr._archive_novelty
+    by_batch = by_batch_k1()
+    print("launches " + json.dumps({**launches, "population_linear.by_batch": by_batch}), flush=True)
+    require(by_batch.get("B=128 bulk", 0) > 0 and any(k.startswith("B=1 ") for k in by_batch),
+            f"{name}: K1 did not launch at B=128 (bulk) and B=1: {by_batch}")
+    npairs = tr._npairs_round()
+    require(launches["noise_gradient"] == len(seen) == NS_HOST_ITERATIONS
+            and all(idx.shape[0] == npairs for idx, _ in seen), f"{name}: K2 launches {launches['noise_gradient']}")
+    require(tr._archive_size() == 3 + NS_HOST_ITERATIONS, f"{name}: archive size {tr._archive_size()}")
+    require(all(bool(torch.isfinite(p.theta).all()) for p in tr.parents), f"{name}: a parent's θ is not finite")
+    errs = [check_k2(table.noise, idx, w, tr.model.num_params) for idx, w in seen]
+    # 4 perturbed members of the current θ on 4 reference frames, card vs CPU (as phase 4)
+    thetas, obs = perturbed_members(tr)
+    card, cpu = (small_forward(tr, thetas, obs, dev) for dev in (tr.device, torch.device("cpu")))
+    err = float((card - cpu).abs().max())
+    tol = 1e-3 * max(1.0, float(cpu.abs().max()))
+    print(f"{name} forward card vs cpu: max abs err {err:.3g} (tol {tol:.3g})", flush=True)
+    require(err <= tol, f"{name}: card forward disagrees with the CPU forward: {err} > {tol}")
+    return dict(trainer=tr, rows=rows, launches=launches, by_batch=by_batch, seen=seen, k2_errs=errs, setup=setup)
+
 
 def main() -> int:
     import torch
@@ -1435,10 +1631,42 @@ def main() -> int:
             eval_return_mean=float(st.eval_returns.mean()), k2_ms=row["ms"], k2_graph_ms=row["graph_ms"],
             rollout_graph_seconds=ab["graph_seconds"], rollout_eager_seconds=ab["eager_seconds"],
         )), flush=True)
-        device_paths[name] = dict(launches=run["launches"]["noise_gradient"],
-                                  **{k: row[k] for k in ("B", "D", "table", "ms", "graph_ms", "bound_ms", "bound_by",
-                                                         "l2_floor_ms", "plain_ms", "library_ms", "max_abs_err")})
+        device_paths[name] = k2_path_row(run["launches"], row)
         del run, tr
+
+    with Phase("maze NS-ES iterations"):
+        run = run_maze_ns(device, table)
+    tr = run["trainer"]
+    with Phase("K2 at the maze NS iterations' shape"):
+        row = k2_case(device, table.noise, *run["seen"][-1], tr.model.num_params, k2["l2_bytes_per_s"])
+    rows = run["rows"]
+    print("maze_ns_run " + json.dumps(dict(
+        config=NS_MAZE, iterations=len(rows), seconds=[r["seconds"] for r in rows],
+        steps_per_s=[r["steps_per_s"] for r in rows], archive=tr._archive_size(), k2_errs=run["k2_errs"],
+        k2_ms=row["ms"], k2_graph_ms=row["graph_ms"],
+    )), flush=True)
+    device_paths["maze_nses"] = k2_path_row(run["launches"], row)
+    del run, tr
+    ns_k1 = {}
+    for name in NS_HOST:
+        with Phase(f"{name} iterations"):
+            run = run_host_ns(device, name, table)
+        tr = run["trainer"]
+        with Phase(f"K2 at the {name} iterations' shape"):
+            row = k2_case(device, table.noise, *run["seen"][-1], tr.model.num_params, k2["l2_bytes_per_s"])
+        rows = run["rows"]
+        print(f"{name.split('.')[0]}_run " + json.dumps(dict(
+            config=name, cut="Frostbite → ToyCatch", setup_seconds=run["setup"], iterations=len(rows),
+            seconds=[r["seconds"] for r in rows], frames_per_s=[r["frames_per_s"] for r in rows],
+            novelty_seconds=[r["novelty_seconds"] for r in rows], k2_errs=run["k2_errs"], k2_ms=row["ms"],
+            k2_graph_ms=row["graph_ms"],
+        )), flush=True)
+        key = name.split(".")[0]
+        device_paths[key] = k2_path_row(run["launches"], row)
+        ns_k1[key] = dict(launches=run["launches"]["population_linear"], by_batch=run["by_batch"])
+        tr.close()
+        del run, tr
+        torch.cuda.empty_cache()
     del table
     torch.cuda.empty_cache()
 
@@ -1466,7 +1694,8 @@ def main() -> int:
 
     kernels = [
         entry("population_linear", "deep_neuroevolution_torch/csrc/population_linear.cu",
-              "deep_neuroevolution_tpu/ops/pallas_forward.py:59", es_launches, k1, variant=k1["variant"]),
+              "deep_neuroevolution_tpu/ops/pallas_forward.py:59", es_launches, k1, variant=k1["variant"],
+              other_paths=ns_k1),
         entry("noise_gradient", "deep_neuroevolution_torch/csrc/noise_gradient.cu",
               "deep_neuroevolution_tpu/ops/pallas_kernels.py:120", es_launches, k2, B=k2["B"],
               table=k2["table"], graph_ms=k2["graph_ms"], l2_floor_ms=k2["l2_floor_ms"],

@@ -120,6 +120,11 @@ class GenStats(NamedTuple):
     bc: np.ndarray  # [n, 2, bc_dim] the rollouts' final-state behavior characterizations
 
 
+def pair_columns(x: np.ndarray, npairs: int) -> np.ndarray:
+    """``[n, 2, ...]`` from the first ``2n`` slots: (θ+σε, θ−σε) per pair."""
+    return np.stack([x[:npairs], x[npairs : 2 * npairs]], axis=1)
+
+
 class ESTrainer:
     """Fixed-population ES on a host-engine env or a device env."""
 
@@ -217,25 +222,32 @@ class ESTrainer:
             return None
         return MLPContext(obstat.mean(self.ob_stat), obstat.std(self.ob_stat), 1.0 if noisy else 0.0, gen, paired)
 
-    def _host_round(self, npairs: int):
-        """One antithetic round: θ±σε for ``npairs`` pairs on the first
-        ``2·npairs`` engine slots. Returns (idxs, returns [n,2],
-        sign returns [n,2], lengths [n,2], bc [n,2,·]) as numpy."""
+    def _host_rollout(self, npairs: int, collect_bc_traj: bool = False):
+        """θ±σε for ``npairs`` pairs on the first ``2·npairs`` engine slots;
+        the reference stats are computed for those members only, and
+        unused slots run copies of the last member and its stats. Returns
+        (idxs, the engine's RolloutResult over every slot)."""
         idxs, seed = self._draw_round(npairs)
         thetas = self._perturbed(idxs)
         with record_function("es.ref_stats"):
             stats = self.model.batch_ref_stats(thetas, self.ref_batch) if self.model.needs_ref_batch else None
-        if 2 * npairs < self.env.batch_size:  # unused slots run copies of the last member
+        if 2 * npairs < self.env.batch_size:
             pad = self.env.batch_size - 2 * npairs
             thetas = torch.cat([thetas, thetas[-1:].expand(pad, -1)])
             if stats is not None:
                 stats = type(stats)(*(tuple(torch.cat([x, x[-1:].expand(pad, -1)]) for x in f) for f in stats))
         with record_function("es.rollout"):
             res = rollout_host_batch(
-                self.env, self.model.make_batch_act(), (thetas, stats), seed, int(self.cutoff.tslimit), self.device
+                self.env, self.model.make_batch_act(), (thetas, stats), seed, int(self.cutoff.tslimit), self.device,
+                collect_bc_traj=collect_bc_traj,
             )
-        pair = lambda x: np.stack([x[:npairs], x[npairs : 2 * npairs]], axis=1)  # noqa: E731
-        return idxs, pair(res.returns), pair(res.sign_returns), pair(res.lengths), pair(res.bc)
+        return idxs, res
+
+    def _host_round(self, npairs: int):
+        """One antithetic round (``_host_rollout``). Returns (idxs, returns
+        [n,2], sign returns [n,2], lengths [n,2], bc [n,2,·]) as numpy."""
+        idxs, res = self._host_rollout(npairs)
+        return idxs, *(pair_columns(x, npairs) for x in (res.returns, res.sign_returns, res.lengths, res.bc))
 
     def _host_eval(self, seed: int) -> Tuple[np.ndarray, np.ndarray]:
         """Noiseless episodes of θ on the first ``n = min(num_eval_episodes,
@@ -298,6 +310,10 @@ class ESTrainer:
 
     # ---------------------------------------------------------- generation
 
+    def _process_returns(self, rets: torch.Tensor, srets: torch.Tensor) -> torch.Tensor:
+        """The [n, 2] weights of the pairs' members (es.py:281-288)."""
+        return fitness.process_returns(rets, srets, self.config.return_proc_mode)
+
     def _compute_update(self, noise_idxs: torch.Tensor, returns_n2, signreturns_n2):
         """Rank transform → gradient (K2) → L2 → optimizer step, from [n, 2]
         returns (numpy or tensors). Returns (g, new opt state, new θ, update
@@ -305,7 +321,7 @@ class ESTrainer:
         cfg = self.config
         rets = torch.as_tensor(returns_n2, device=self.device)
         srets = torch.as_tensor(signreturns_n2, device=self.device)
-        proc = fitness.process_returns(rets, srets, cfg.return_proc_mode)
+        proc = self._process_returns(rets, srets)
         w = (proc[:, 0] - proc[:, 1]).contiguous()
         g = noise_gradient(self.noise.noise, noise_idxs.to(self.device, torch.int32).contiguous(), w, self.model.num_params)
         g = g / rets.numel()  # es.py:296

@@ -18,9 +18,12 @@ draws the noop counts and the engine's per-episode seeds, in the same
 order as the JAX package, so equal seeds give equal episodes in both.
 
 ``n_slots`` runs only slots ``[0, n)``; each result carries the slots'
-final states (RAM bytes) as their behavior characterization.
+final states (RAM bytes) as their behavior characterization and, with
+``collect_bc_traj``, each slot's RAM after every step it took, the
+trajectory BC of NS-ES on Atari (policies.py:410-418). The RAM is read
+after each whole step, every group's engine step done.
 
-Not ported yet: obs-stat sampling, BC trajectories, mirrored pairs,
+Not ported yet: obs-stat sampling, mirrored pairs,
 ``rollout_host_vec`` (vector-observation engines) and the ``rollout_host``
 dispatcher between it and ``rollout_host_batch``; overlap through a second
 CUDA stream.
@@ -28,7 +31,7 @@ CUDA stream.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +45,9 @@ class RolloutResult(NamedTuple):
     sign_returns: np.ndarray  # [B] f32 Σ sign(r_t)
     lengths: np.ndarray  # [B] i32 engine steps taken, the terminal one included
     bc: np.ndarray  # [B, final_state_size] f32 final RAM bytes (tf_atari.cpp:114-119)
+    # with collect_bc_traj: per slot, its RAM after each step it took,
+    # concatenated, [length · final_state_size] f32; ragged across slots
+    bc_traj: Optional[Tuple[np.ndarray, ...]] = None
 
 
 def _frames_to(frames: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -66,6 +72,7 @@ def rollout_host_batch(
     device: torch.device,
     pipeline_groups: Optional[int] = None,
     n_slots: Optional[int] = None,
+    collect_bc_traj: bool = False,
 ) -> RolloutResult:
     """Evaluate B policies on the B engine slots, one episode each.
 
@@ -73,7 +80,8 @@ def rollout_host_batch(
     counts engine steps (each is 4 emulator frames). ``pipeline_groups``
     defaults to the env's. ``n_slots`` < B runs only slots ``[0, n_slots)``
     with n_slots policies (the GA's validation and test ladder evaluates a
-    handful of members)."""
+    handful of members). ``collect_bc_traj`` returns each slot's RAM
+    trajectory in ``bc_traj``."""
     B, out_hw = henv.batch_size, henv.warp_size
     sub = None
     if n_slots is not None and n_slots < B:
@@ -102,9 +110,11 @@ def rollout_host_batch(
     ret = np.zeros(B, np.float32)
     sret = np.zeros(B, np.float32)
     length = np.zeros(B, np.int32)
+    rams, ram_slots = [], []  # per step: the RAM rows of the slots that took it, and their slots
     for _ in range(timestep_limit):
         if done.all():
             break
+        alive_t = np.nonzero(~done)[0]  # the slots taking this step
         for g in range(G):
             galive = ~done[sls[g]]
             if not galive.any():
@@ -124,7 +134,18 @@ def rollout_host_batch(
             sret[alive_idx] += np.sign(r_sub)
             length[alive_idx] += 1
             done[alive_idx] |= d_sub
-    return RolloutResult(ret, sret, length, henv.final_state(indices=sub))
+        if collect_bc_traj:
+            rams.append(henv.final_state(indices=sub)[alive_t])
+            ram_slots.append(alive_t)
+    trajs = None
+    if collect_bc_traj:
+        # a slot took steps 0 … length−1: its rows, in step order, are its
+        # trajectory
+        rows = np.zeros(0, np.float32)
+        if rams:
+            rows = np.concatenate(rams)[np.argsort(np.concatenate(ram_slots), kind="stable")]
+        trajs = tuple(t.reshape(-1) for t in np.split(rows, np.cumsum(length)[:-1]))
+    return RolloutResult(ret, sret, length, henv.final_state(indices=sub), trajs)
 
 
 def collect_ref_batch_host(henv, seed: int, device: torch.device, batch_size: int = 128) -> torch.Tensor:

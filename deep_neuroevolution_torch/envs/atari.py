@@ -7,8 +7,12 @@ indexed color to luminance with a LUT and ships gray uint8 frame pairs;
 the device does the 2-frame max, the resize and the stack
 (envs/preprocess.py, algos/rollout_host.py).
 
-Not ported yet: ALE games, EpisodicLife, and the 'indexed' and 'preproc'
-obs modes.
+``episodic_life`` turns on EpisodicLife episodes (atari_wrappers.py:50-84):
+the CPU stack's ``wrap_deepmind`` default for training envs, which
+utils/config.py enables for ``<Game>NoFrameskip-v4`` ids, as the JAX
+package does. The behavior characterization is the 128 RAM bytes.
+
+Not ported yet: ALE games, and the 'indexed' and 'preproc' obs modes.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ class AtariEnv:
 
     is_host_env = True
     warp_size = 84  # frames are resized to warp_size × warp_size (tf_atari.py:93)
+    bc_dim = 128  # RAM bytes (tf_atari.cpp:114-119; policies.py:410-418)
 
     def __init__(
         self,
@@ -33,6 +38,7 @@ class AtariEnv:
         batch_size: int = 64,
         num_threads: int = 0,
         pipeline_groups: int = 2,
+        episodic_life: bool = False,
     ):
         from ..native.bridge import HostBatchEnv
 
@@ -42,7 +48,8 @@ class AtariEnv:
                 "ToyCatch engine with game 'toy' (CLI override {\"game\": \"toy\"})"
             )
         self.game = game
-        self._env = HostBatchEnv("toy", batch_size, num_threads)
+        self._env = HostBatchEnv("toy", batch_size, num_threads, episodic_life=episodic_life)
+        self.episodic_life = episodic_life
         self._env.set_gray_lut(GRAY_PALETTE_UINT8)
         self.num_actions = self._env.num_actions
         self.batch_size = batch_size

@@ -12,10 +12,17 @@ The counterpart of the JAX package's main.py ``cmd_train``:
     python -m deep_neuroevolution_torch.main train --exp_file configurations/maze_es.json
     python -m deep_neuroevolution_torch.main train --exp_file configurations/es_gym_config.json
 
-``--algo`` picks es, ga or rs; without it a GPU-stack file with
+    python -m deep_neuroevolution_torch.main train --exp_file configurations/maze_nses.json --iterations 3
+    python -m deep_neuroevolution_torch.main train --exp_file configurations/frostbite_nses.json
+    python -m deep_neuroevolution_torch.main train --exp_file configurations/frostbite_nsres.json
+
+``--algo`` picks es, ga, rs or nses; without it a GPU-stack file with
 "selection_threshold" runs the GA and any other file ES. A CPU-stack file
-(``env_id``, ``policy``, ``config``; maze_es.json) runs ES. maze_es.json
-and es_gym_config.json run on the device envs (Hard Maze, CartPole).
+(``env_id``, ``policy``, ``config``; maze_es.json) runs ES, or NS-ES when
+it has "novelty_search" (maze_nses.json, frostbite_nses.json and
+frostbite_nsres.json, whose ``algo_type`` picks NS or NSR). maze_es.json,
+es_gym_config.json and maze_nses.json run on the device envs (Hard Maze,
+CartPole); the frostbite files on the ToyCatch engine with EpisodicLife.
 
 It runs on the CUDA device unless ``--device cpu`` is given, and exits with
 the "no CUDA device" error where there is none. Each generation prints the
@@ -99,9 +106,9 @@ def profile_generation(trainer, out_dir: str) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="deep_neuroevolution_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    t = sub.add_parser("train", help="run an ES, GA or RS experiment (GPU-stack or CPU-stack JSON schema)")
+    t = sub.add_parser("train", help="run an ES, GA, RS or NS-ES experiment (GPU-stack or CPU-stack JSON schema)")
     t.add_argument("--exp_file", required=True, help="experiment JSON path")
-    t.add_argument("--algo", choices=["es", "ga", "rs"], help="algorithm (default: from the file)")
+    t.add_argument("--algo", choices=["es", "ga", "rs", "nses"], help="algorithm (default: from the file)")
     t.add_argument("--log_dir", default="", help="log.txt and metrics.jsonl go here")
     t.add_argument("--iterations", type=int, default=1, help="generations to run")
     t.add_argument("--seed", type=int, default=0)

@@ -20,6 +20,8 @@ REGISTRY = {
     "ContinuousMLP": ContinuousMLP,
     # CPU stack policy names (es_distributed/policies.py)
     "MujocoPolicy": MujocoMLP,
+    "ESAtariPolicy": VirtualBNDQN,
+    "GAAtariPolicy": SmallDQN,
     # class names
     "VirtualBNDQN": VirtualBNDQN,
     "SmallDQNXavier": SmallDQNXavier,

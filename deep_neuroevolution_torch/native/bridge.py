@@ -3,7 +3,8 @@
 ``HostBatchEnv`` is the batched, index-addressable env interface of the
 reference's TF env ops (gym_tensorflow/tf_env.py:27-80): reset(indices,
 noops, max_frames, seeds), step(actions, indices) → (reward, done),
-observe(indices), final_state(indices). NumPy staging buffers are reused across calls.
+observe(indices), final_state(indices), with EpisodicLife episodes on
+request. NumPy staging buffers are reused across calls.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ def _load() -> ctypes.CDLL:
     lib.nevo_create.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
     lib.nevo_destroy.restype = None
     lib.nevo_destroy.argtypes = [ctypes.c_void_p]
+    lib.nevo_set_episodic_life.restype = None
+    lib.nevo_set_episodic_life.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.nevo_obs_shape.restype = None
     lib.nevo_obs_shape.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.nevo_action_count.restype = ctypes.c_int
@@ -52,12 +55,17 @@ class HostBatchEnv:
     """Batched host simulator pool. Only the "toy" backend (ToyCatch) is
     built into the port's engine."""
 
-    def __init__(self, backend: str = "toy", batch_size: int = 64, num_threads: int = 0):
+    def __init__(self, backend: str = "toy", batch_size: int = 64, num_threads: int = 0, episodic_life: bool = False):
         lib = _load()
         self._lib = lib
         self._h = lib.nevo_create(backend.encode(), b"", batch_size, num_threads)
         if not self._h:
             raise RuntimeError(f"engine backend {backend!r} unavailable (the port's engine is built without ALE)")
+        if episodic_life:
+            # EpisodicLife training episodes (atari_wrappers.py:50-84): done on
+            # a life lost; the game restarts only on game over, and a reset
+            # after a life lost goes on with one no-op step
+            lib.nevo_set_episodic_life(self._h, 1)
         self.batch_size = batch_size
         dims = (ctypes.c_int * 3)()
         lib.nevo_obs_shape(self._h, dims)

@@ -22,11 +22,13 @@ alignment:
   (member, N tile).
 
 ``population_linear.launches`` counts the calls that launched a kernel;
-``bulk_launches`` and ``general_launches`` split that count by variant.
+``bulk_launches`` and ``general_launches`` split that count by variant, and
+``launches_by_batch`` by (B, variant).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from typing import Optional
@@ -211,13 +213,16 @@ def population_linear(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
         _cuda_build.check(lib, err, "population_linear (general)")
         population_linear.general_launches += 1
     population_linear.launches += 1
+    population_linear.launches_by_batch[(B, p.variant)] += 1
     return y
 
 
-# kernel launches since the caller last set them to 0: all, and by variant
+# kernel launches since the caller last set them to 0: all, by variant, and
+# by (B, variant)
 population_linear.launches = 0
 population_linear.bulk_launches = 0
 population_linear.general_launches = 0
+population_linear.launches_by_batch = collections.Counter()
 
 
 def bulk_blocks_per_sm(dtype: torch.dtype, smem: int) -> int:

@@ -1,5 +1,5 @@
 """Experiment configuration: the GPU-stack schema, and the CPU-stack schema's
-ES branch.
+ES and NS-ES branches.
 
 The counterpart of the JAX package's utils/config.py. Two schemas:
 
@@ -11,16 +11,23 @@ The counterpart of the JAX package's utils/config.py. Two schemas:
   else GA when the file has "selection_threshold" and ES otherwise
   (config.py:213, 247-261 of the JAX package); ``"rs"`` runs random search
   on a GA file.
-* CPU stack (es_distributed), ES only: {"config": {...}, "env_id",
-  "policy": {"type", "args"}, "optimizer", "population_size"}
-  (config.py:264-313 of the JAX package). ``eval_prob`` sets the
-  eval-episode count as there: ``eval_prob · episodes_per_batch`` (at least
-  1) when both are set, else 8.
+* CPU stack (es_distributed): {"config": {...}, "env_id", "policy":
+  {"type", "args"}, "optimizer", "population_size"} (config.py:264-313 of
+  the JAX package). ``eval_prob`` sets the eval-episode count as there:
+  ``eval_prob · episodes_per_batch`` (at least 1) when both are set, else
+  8. A file with "novelty_search" (or ``algo`` "nses") runs NS-ES, as the
+  JAX package's config.py:330-361 reads it: the population is
+  ``episodes_per_batch`` (``timesteps_per_batch`` is not read),
+  ``algo_type``, k, M, ``num_rollouts`` and ``selection_method`` come from
+  the file, ``bc_mode`` is 'traj' on the host engine and 'final'
+  elsewhere, and no eval episodes run.
 
 ``resolve_env`` maps env ids onto the registry (envs/core.py ``make``):
 'maze', 'gym.<Id>' and 'CartPole-*' are device envs; any other game runs
 on the host engine (256 slots unless ``env_kwargs`` says otherwise), whose
-only backend here is ToyCatch ('toy').
+only backend here is ToyCatch ('toy'). ``<Game>NoFrameskip-v4`` ids run on
+ToyCatch with EpisodicLife on, as the JAX package runs them where ALE is
+missing (its config.py:34-53).
 
 ``overrides`` patches a run without editing the file:
 
@@ -31,15 +38,16 @@ only backend here is ToyCatch ('toy').
   ``batch_size`` (slots), ``num_threads``, ``pipeline_groups``;
 * ``noise_size`` — noise-table length (default 250M, the reference's);
 * ``theta_hbm_budget`` — bytes allowed for one round's θ batch;
-* ``num_eval_episodes`` — ES only: noiseless episodes of θ per generation.
+* ``num_eval_episodes`` — ES only: noiseless episodes of θ per generation;
+* ``bc_mode`` — NS-ES only: 'final' or 'traj'.
 
 Not ported yet, and rejected with ``NotImplementedError`` rather than
 dropped: the experiment keys ``load_population`` (GA population import),
 ``load_from`` (GA-seeded ES) and ``mirror_crn`` (mirrored common random
-numbers), and the ``mirror_crn`` override; in the CPU-stack schema,
-``novelty_search`` and any ``algo`` but es, quota mode
-(``episodes_per_batch`` or ``timesteps_per_batch`` > 0), the policy's
-``init_from`` warm start, ``<Game>NoFrameskip-v4`` and MuJoCo env ids.
+numbers), and the ``mirror_crn`` override; in the CPU-stack schema, any
+``algo`` but es and nses, ES's quota mode (``episodes_per_batch`` or
+``timesteps_per_batch`` > 0), the policy's ``init_from`` warm start and
+MuJoCo env ids (so ``humanoid_nses.json`` too); NS-ES on a GPU-stack file.
 Rejected as unsupported: the ``eval_batch`` and ``grad_chunk`` overrides
 (the device arms' chunks).
 """
@@ -54,6 +62,7 @@ import numpy as np
 from .. import envs, models
 from ..algos.es import ESConfig, ESTrainer
 from ..algos.ga import GAConfig, GATrainer, RSTrainer
+from ..algos.nses import NSESConfig, NSESTrainer
 from ..device import resolve_device
 from ..envs.core import Continuous, Discrete
 from ..ops import optim
@@ -61,7 +70,7 @@ from ..ops.noise import NoiseTable
 
 _OVERRIDES = {
     "game", "population_size", "episode_cutoff_mode", "env_kwargs", "noise_size", "theta_hbm_budget",
-    "num_eval_episodes",
+    "num_eval_episodes", "bc_mode",
 }
 # keys the JAX package acts on (its utils/config.py:222, 233-245, 260-261)
 _UNPORTED_KEYS = ("load_population", "load_from", "mirror_crn")
@@ -75,7 +84,10 @@ _MUJOCO_FAMILIES = (
 def resolve_env(env_id: str, **kwargs):
     """An env id of either schema → a device env or the host engine."""
     if re.fullmatch(r"[A-Za-z0-9]+NoFrameskip-v\d+", env_id):
-        raise NotImplementedError(f"env id {env_id!r}: CPU-stack Atari ids (EpisodicLife) are not ported yet")
+        # the CPU stack wraps its training envs with wrap_deepmind, whose
+        # EpisodicLifeEnv is on by default (atari_wrappers.py:204-222); the
+        # engine has no ALE, so ToyCatch stands in for the game
+        return envs.make("toy", **{"batch_size": 256, "episodic_life": True, **kwargs})
     if env_id.split("-")[0] == "CartPole":
         env_id = "gym." + env_id
     if env_id == "maze" or env_id.startswith("gym."):
@@ -141,19 +153,22 @@ def load_experiment(
     if cpu_schema:
         if "env_id" not in exp:
             raise ValueError("an experiment needs a 'game' (GPU-stack schema) or an 'env_id' (CPU-stack schema)")
-        if "novelty_search" in exp:
-            raise NotImplementedError("'novelty_search' (NS-ES) is not ported yet")
-        algo = algo or exp.get("algo") or "es"
-        for quota in ("episodes_per_batch", "timesteps_per_batch"):
-            if int(exp["config"].get(quota, 0)) > 0:
-                raise NotImplementedError(f"quota mode ({quota!r} > 0) is not ported yet")
+        algo = algo or exp.get("algo") or ("nses" if "novelty_search" in exp else "es")
+        if algo == "es":  # NS-ES reads episodes_per_batch as its population
+            for quota in ("episodes_per_batch", "timesteps_per_batch"):
+                if int(exp["config"].get(quota, 0)) > 0:
+                    raise NotImplementedError(f"quota mode ({quota!r} > 0) is not ported yet")
     else:
         algo = algo or ("ga" if "selection_threshold" in exp else "es")
-    if algo not in ("es", "ga", "rs") or (cpu_schema and algo != "es"):
-        raise NotImplementedError(f"algo {algo!r} is not ported yet for this schema; ported: "
-                                  + ("es" if cpu_schema else "es, ga, rs"))
+    if algo == "nses" and not cpu_schema:
+        raise NotImplementedError("algo 'nses': NS-ES runs CPU-stack files (with 'novelty_search'), not GPU-stack ones")
+    ported = ("es", "nses") if cpu_schema else ("es", "ga", "rs")
+    if algo not in ported:
+        raise NotImplementedError(f"algo {algo!r} is not ported yet for this schema; ported: {', '.join(ported)}")
     if "num_eval_episodes" in overrides and algo != "es":
         raise ValueError("the 'num_eval_episodes' override applies to ES only")
+    if "bc_mode" in overrides and algo != "nses":
+        raise ValueError("the 'bc_mode' override applies to NS-ES only")
     device = resolve_device(device)
     budget = {k: overrides[k] for k in ("theta_hbm_budget",) if k in overrides}
     if "noise_size" in overrides:
@@ -167,6 +182,8 @@ def load_experiment(
     env = resolve_env(env_id, **overrides.get("env_kwargs", {}))
     try:
         model = build_model(model_name, model_args, env)
+        if algo == "nses":
+            return _nses_trainer(env, model, exp, overrides, budget, noise_table, seed, device)
         if cpu_schema:
             c = exp["config"]
             cfg = ESConfig(
@@ -210,9 +227,33 @@ def load_experiment(
         raise
 
 
-def _es_trainer(env, model, cfg: ESConfig, exp: Dict[str, Any], noise_table, seed: int, device) -> ESTrainer:
+def _nses_trainer(env, model, exp: Dict[str, Any], overrides, budget, noise_table, seed: int, device) -> NSESTrainer:
+    """The JAX package's NS branch (its config.py:330-361)."""
+    c, ns = exp["config"], exp.get("novelty_search", {})
+    # Atari NS-ES characterizes behavior by the per-step RAM trajectory
+    # (policies.py:410-418), the device envs by the final state
+    default_bc = "traj" if getattr(env, "is_host_env", False) else "final"
+    cfg = NSESConfig(
+        l2coeff=c.get("l2coeff", 0.005),
+        noise_stdev=c.get("noise_stdev", 0.02),
+        population_size=int(overrides.get("population_size", c.get("episodes_per_batch", 128))),
+        return_proc_mode=c.get("return_proc_mode", "centered_sign_rank"),
+        episode_cutoff_mode=overrides.get("episode_cutoff_mode", c.get("episode_cutoff_mode", "env_default")),
+        algo_type=exp.get("algo_type", "ns"),
+        k=int(ns.get("k", 10)),
+        meta_population_size=int(ns.get("population_size", 3)),
+        num_rollouts=int(ns.get("num_rollouts", 1)),
+        selection_method=ns.get("selection_method", "novelty_prob"),
+        bc_mode=overrides.get("bc_mode", ns.get("bc_mode", default_bc)),
+        **budget,
+    )
+    return _es_trainer(env, model, cfg, exp, noise_table, seed, device, NSESTrainer)
+
+
+def _es_trainer(env, model, cfg: ESConfig, exp: Dict[str, Any], noise_table, seed: int, device,
+                ctor=ESTrainer) -> ESTrainer:
     opt_cfg = exp.get("optimizer", {"type": "adam", "args": {"stepsize": 0.01}})
-    return ESTrainer(
+    return ctor(
         env,
         model,
         cfg,

@@ -327,14 +327,12 @@ def test_both_configurations_load_on_the_cpu():
 def test_config_rejects_what_is_not_ported():
     maze = _exp("maze_es.json")
     for exp, match in (
-        (_exp("maze_nses.json"), "novelty_search"),
         ({**maze, "config": {**maze["config"], "episodes_per_batch": 100}}, "quota mode"),
         ({**maze, "config": {**maze["config"], "timesteps_per_batch": 100}}, "quota mode"),
         ({**maze, "algo": "ga"}, "algo 'ga'"),
         ({**maze, "config": {**maze["config"], "mirror_crn": True}}, "mirror_crn"),
         ({**maze, "policy": {"type": "ContinuousMLP", "args": {"init_from": "x.h5"}}}, "init_from"),
         (_exp("humanoid.json"), "quota mode"),
-        ({**maze, "env_id": "FrostbiteNoFrameskip-v4"}, "NoFrameskip"),
         ({**maze, "env_id": "Humanoid-v1"}, "MuJoCo"),
     ):
         with pytest.raises(NotImplementedError, match=match):
