@@ -91,7 +91,25 @@ ends:
    card matches the CPU's; each rollout's novelty equals a float64 plain
    recomputation from its trajectory. Frames/s and the seconds of the
    trajectory novelty per iteration; K2 timed on the last iteration's
-   offsets. Nothing is cut but the game.
+   offsets. Nothing is cut but the game;
+18. one generation of configurations/frostbite_es.json through the loader,
+   nothing cut but the game (Frostbite → ToyCatch with EpisodicLife, 256
+   slots, the VBN-DQN at full width, phase 13's table), in quota mode:
+   rounds of 64 pairs until 5000 episodes and 10,000 steps are both met.
+   The round count must equal the JAX package's rule, 50 eval episodes run
+   (eval_prob 0.01 × 5000), K1 and K2 launch, a small forward on the card
+   match the CPU's and K2's g on the generation's own offsets its plain
+   version. Seconds, frames/s, and K2 timed at that shape (about 2560
+   pairs × 1,004,852);
+19. long runs on the card: ``main train --log_dir --snapshot_freq 1`` on
+   phase 4's cut of es_atari_config.json and on maze_nses.json (the table
+   cut to 25M floats), 3 generations straight through against 2 and a
+   resumed 1: θ and the last generation's returns and lengths must be
+   equal bit for bit, and the straight run's policy file must load back to
+   its θ; phase 4's cut with ``mirror_crn`` and σ = 0 (a pair's θ halves
+   equal): each pair's returns and lengths equal; one quota-mode
+   generation of maze_es.json (1024 episodes, 300,000 steps) meets both
+   quotas.
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -1188,9 +1206,9 @@ def record_k2():
 
     real, seen = es.noise_gradient, []
 
-    def recorded(table_, idxs, weights, dim):
+    def recorded(table_, idxs, weights, dim, *rest):
         seen.append((idxs.clone(), weights.clone()))
-        return real(table_, idxs, weights, dim)
+        return real(table_, idxs, weights, dim, *rest)
 
     es.noise_gradient = recorded
     try:
@@ -1493,6 +1511,162 @@ def run_host_ns(device, name: str, table) -> dict:
     return dict(trainer=tr, rows=rows, launches=launches, by_batch=by_batch, seen=seen, k2_errs=errs, setup=setup)
 
 
+# phase 18: frostbite_es.json whole (quota mode) on phase 13's table
+QUOTA_CONFIG = "frostbite_es.json"
+
+
+def quota_rounds(lengths, npairs: int, episodes: int, timesteps: int) -> int:
+    """The JAX package's host rule (its es.py:772-801): rounds of ``npairs``
+    pairs until both quotas are met, counted from the rounds' lengths."""
+    per_round = lengths.reshape(-1, npairs * 2).sum(axis=1)
+    for r in range(1, per_round.size + 1):
+        if 2 * npairs * r >= episodes and per_round[:r].sum() >= timesteps:
+            return r
+    return -1
+
+
+def run_quota_es(device, table) -> dict:
+    """One generation of frostbite_es.json through the loader, nothing cut
+    but the game: rounds of 64 pairs on 256 slots until 5000 episodes and
+    10,000 steps are met, then 50 eval episodes (eval_prob 0.01 × 5000)."""
+    import torch
+
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / QUOTA_CONFIG).read_text())
+    zero_counters()
+    t0 = time.perf_counter()
+    tr = config.load_experiment(exp, device=device, noise_table=table)
+    setup = time.perf_counter() - t0
+    cfg = tr.config
+    print(f"frostbite_es: {type(tr.env).__name__}(episodic_life={tr.env.episodic_life}, slots={tr.env.batch_size}) "
+          f"{type(tr.model).__name__} D={tr.model.num_params} {json.dumps(dataclasses.asdict(cfg))}", flush=True)
+    try:
+        with record_k2() as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = tr.train_step()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_counters()
+    finally:
+        tr.close()
+    by_batch = by_batch_k1()
+    print("launches " + json.dumps({**launches, "population_linear.by_batch": by_batch}), flush=True)
+    npairs = tr._npairs_round()
+    episodes, steps = int(st.lengths.size), int(st.lengths.sum())
+    rounds = st.lengths.shape[0] // npairs
+    rule = quota_rounds(st.lengths, npairs, cfg.episodes_per_batch, cfg.timesteps_per_batch)
+    out = dict(config=QUOTA_CONFIG, cut="Frostbite → ToyCatch", setup_seconds=setup, seconds=seconds,
+               episodes=episodes, timesteps=steps, frames_per_s=4 * steps / seconds, pairs_a_round=npairs,
+               rounds=rounds, jax_rule_rounds=rule, padded_slots_a_round=tr.env.batch_size - 2 * npairs,
+               length_mean=float(st.lengths.mean()), length_max=int(st.lengths.max()),
+               eval_episodes=int(st.eval_returns.size), return_mean=float(st.returns.mean()),
+               eval_return_mean=float(st.eval_returns.mean()))
+    print("frostbite_es_generation " + json.dumps(out), flush=True)
+    require(tr.quota_mode and episodes >= cfg.episodes_per_batch and steps >= cfg.timesteps_per_batch,
+            f"frostbite_es: quotas not met ({episodes} episodes, {steps} steps)")
+    require(rounds == rule and st.lengths.shape[0] % npairs == 0, f"frostbite_es: {rounds} rounds, the JAX rule {rule}")
+    require(st.eval_returns.size == cfg.num_eval_episodes == 50, f"frostbite_es: {st.eval_returns.size} eval episodes")
+    require(bool(np.isfinite(st.returns).all()) and bool(torch.isfinite(tr.theta).all()), "frostbite_es: not finite")
+    require(launches["population_linear"] > 0 and launches["noise_gradient"] == len(seen) == 1,
+            f"frostbite_es: K1 {launches['population_linear']}, K2 {launches['noise_gradient']} launches")
+    idx, w = seen[0]
+    require(idx.shape[0] == episodes // 2, f"frostbite_es: K2 summed {idx.shape[0]} pairs of {episodes} episodes")
+    err = check_k2(table.noise, idx, w, tr.model.num_params)
+    thetas, obs = perturbed_members(tr)
+    card, cpu = (small_forward(tr, thetas, obs, dev) for dev in (tr.device, torch.device("cpu")))
+    ferr, tol = float((card - cpu).abs().max()), 1e-3 * max(1.0, float(cpu.abs().max()))
+    print(f"frostbite_es forward card vs cpu: max abs err {ferr:.3g} (tol {tol:.3g})", flush=True)
+    require(ferr <= tol, f"frostbite_es: card forward disagrees with the CPU forward: {ferr} > {tol}")
+    return dict(trainer=tr, stats=out, launches=launches, by_batch=by_batch, idx=idx, w=w, k2_err=err)
+
+
+# phase 19: long runs on the card
+def train_cli(log_dir: str, exp_file: str, iterations: int, overrides: dict, device) -> object:
+    """``main train`` with a log directory and a snapshot every generation;
+    returns the trainer."""
+    from deep_neuroevolution_torch import main as cli
+
+    argv = ["train", "--exp_file", str(ROOT / "configurations" / exp_file), "--log_dir", log_dir,
+            "--iterations", str(iterations), "--snapshot_freq", "1", "--overrides", json.dumps(overrides),
+            "--device", str(device)]
+    return cli.cmd_train(cli.build_parser().parse_args(argv))
+
+
+def check_resume(exp_file: str, overrides: dict, device) -> dict:
+    """3 generations straight through against 2, then a resumed run of 1:
+    θ (every parent's for NS-ES) and the last generation's returns and
+    lengths bit for bit; the straight run's policy file of generation 3
+    loads back to its θ."""
+    import torch
+
+    from deep_neuroevolution_torch.utils import checkpoint
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        a = train_cli(f"{d}/a", exp_file, 3, overrides, device)
+        straight = time.perf_counter() - t0
+        train_cli(f"{d}/b", exp_file, 2, overrides, device)
+        b = train_cli(f"{d}/b", exp_file, 1, overrides, device)
+        require(a.iteration == b.iteration == 3, f"{exp_file}: iterations {a.iteration}, {b.iteration}")
+        thetas = [(p.theta, q.theta) for p, q in zip(a.parents, b.parents)] if hasattr(a, "parents") else []
+        require(all(torch.equal(x, y) for x, y in [(a.theta, b.theta), *thetas]),
+                f"{exp_file}: the resumed run's θ differs from the straight run's")
+        for f in ("returns", "lengths"):
+            require(np.array_equal(getattr(a.last_stats, f), getattr(b.last_stats, f)),
+                    f"{exp_file}: the resumed run's {f} differ")
+        (policy,) = Path(f"{d}/a").glob("snapshot_iter00003_rew*.pkl")
+        _, theta, _ = checkpoint.load_policy_snapshot(str(policy), device=a.device)
+        theta_a = a.parents[a.curr_parent].theta if hasattr(a, "parents") else a.theta
+        require(torch.equal(theta, theta_a), f"{exp_file}: the policy file does not load back to θ")
+    out = dict(config=exp_file, overrides=overrides, straight_seconds=straight, theta_equal=True,
+               policy_file=policy.name)
+    print("resume " + json.dumps(out), flush=True)
+    return out
+
+
+def check_mirrored_pairs(device) -> dict:
+    """Phase 4's cut with ``mirror_crn`` and σ = 0 (a pair's θ halves
+    equal): each pair's returns and lengths are equal."""
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / "es_atari_config.json").read_text())
+    ov = {**SMOKE_OVERRIDES, "mirror_crn": True, "num_eval_episodes": 0}
+    table = NoiseTable.from_seed(count=ov.pop("noise_size"), device=device)
+    tr = config.load_experiment({**exp, "mutation_power": 0.0}, overrides=ov, device=device, noise_table=table)
+    try:
+        st = tr.train_step()
+    finally:
+        tr.close()
+    equal = np.array_equal(st.returns[:, 0], st.returns[:, 1]) and np.array_equal(st.lengths[:, 0], st.lengths[:, 1])
+    out = dict(pairs=int(st.returns.shape[0]), pairs_a_round=tr._npairs_round(), equal=bool(equal),
+               distinct_lengths=int(np.unique(st.lengths).size))
+    print("mirrored_pairs " + json.dumps(out), flush=True)
+    require(tr.config.mirror_crn and equal, "mirror_crn: a pair's members with equal θ ran different episodes")
+    return out
+
+
+def check_maze_quota(device, table) -> dict:
+    """One quota-mode generation of maze_es.json (1024 episodes and 300,000
+    steps): both quotas met."""
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / "maze_es.json").read_text())
+    ov = {"episodes_per_batch": 1024, "timesteps_per_batch": 300_000}
+    tr = config.load_experiment(exp, overrides=ov, device=device, noise_table=table)
+    t0 = time.perf_counter()
+    st = tr.train_step()
+    seconds = time.perf_counter() - t0
+    out = dict(overrides=ov, seconds=seconds, episodes=int(st.lengths.size), timesteps=int(st.lengths.sum()),
+               rounds_per_estimate=tr.last_dispatches)
+    print("maze_quota " + json.dumps(out), flush=True)
+    require(tr.quota_mode and out["episodes"] >= tr.config.episodes_per_batch
+            and out["timesteps"] >= tr.config.timesteps_per_batch, f"maze quota: not met, {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1667,6 +1841,29 @@ def main() -> int:
         tr.close()
         del run, tr
         torch.cuda.empty_cache()
+
+    with Phase("frostbite_es.json generation (quota mode)"):
+        run = run_quota_es(device, table)
+    tr = run["trainer"]
+    with Phase("K2 at the frostbite_es generation's shape"):
+        row = k2_case(device, table.noise, run["idx"], run["w"], tr.model.num_params, k2["l2_bytes_per_s"])
+    print("frostbite_es_run " + json.dumps(dict(
+        **run["stats"], k2_err=run["k2_err"], k2_pairs=int(run["idx"].shape[0]), k2_ms=row["ms"],
+        k2_graph_ms=row["graph_ms"], k2_bound_ms=row["bound_ms"], k2_l2_floor_ms=row["l2_floor_ms"],
+    )), flush=True)
+    device_paths["frostbite_es"] = k2_path_row(run["launches"], row)
+    ns_k1["frostbite_es"] = dict(launches=run["launches"]["population_linear"], by_batch=run["by_batch"])
+    del run, tr
+    torch.cuda.empty_cache()
+
+    with Phase("long runs: resume, mirrored pairs, maze quota"):
+        long_runs = dict(
+            resume_es=check_resume("es_atari_config.json", SMOKE_OVERRIDES, device),
+            resume_maze_nses=check_resume("maze_nses.json", {"noise_size": 25_000_000}, device),
+            mirrored_pairs=check_mirrored_pairs(device),
+            maze_quota=check_maze_quota(device, table),
+        )
+    print("long_runs " + json.dumps(long_runs), flush=True)
     del table
     torch.cuda.empty_cache()
 

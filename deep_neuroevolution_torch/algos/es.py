@@ -1,22 +1,31 @@
-"""Evolution Strategies in fixed-population mode, on the host engine or a
-device env.
+"""Evolution Strategies in fixed-population and quota mode, on the host
+engine or a device env.
 
 The counterpart of the JAX package's algos/es.py ``ESTrainer``, after
 es_distributed/es.py and gpu_implementation/es.py:
 
 * antithetic pairs θ ± σε, with ε a noise-table row at a sampled offset
   (es.py:411-426);
-* a generation of ``population_size`` episodes, run in rounds of pairs,
-  capped so the ``[2·pairs, D]`` θ batch stays under ``theta_hbm_budget``
-  bytes of device memory (and, on the host engine, by the slot count);
+* a generation of ``population_size`` episodes (fixed-population mode), or
+  in quota mode (``episodes_per_batch`` or ``timesteps_per_batch`` > 0)
+  rounds until both quotas are met (es.py:230); a round is ``eval_batch``
+  pairs, else the population's (64 in quota mode), capped so the
+  ``[2·pairs, D]`` θ batch stays under ``theta_hbm_budget`` bytes of device
+  memory (and, on the host engine, by the slot count: the JAX package's
+  ``_npairs_round``);
 * VBN reference stats per perturbed member, from a reference batch that a
   random policy collects once (es.py:159-162);
-* centered ranks, g = Σ(w⁺−w⁻)ᵢ·εᵢ / (2n) through kernel K2, and the
-  optimizer step on −g + l2coeff·θ (es.py:281-301);
+* centered ranks, g = Σ(w⁺−w⁻)ᵢ·εᵢ / (2n) through kernel K2 (``grad_chunk``
+  pairs at a time in its plain version), and the optimizer step on
+  −g + l2coeff·θ (es.py:281-301);
 * the episode-cutoff DSL and its adaptive bump (es.py:169-186, 308-311);
 * ``num_eval_episodes`` noiseless episodes of the pre-update θ each
   generation (es.py:388-405), logged as the reference's ``Eval*`` metrics;
-* the reference's tabular metric names (es.py:314-343).
+* the reference's tabular metric names (es.py:314-343);
+* with ``vine_snapshot_dir``, the VINE dumps of each generation
+  (es_modified.py:140-199; utils/vine.py): a row per rollout, with its
+  engine episode seed (host engine) or its round's rollout seed (device
+  env), and the parent's row, policy file and reference batch.
 
 Two arms run a round. The host arm (``_host_round``, ``_host_eval``)
 drives the C++ engine through algos/rollout_host.py. The device arm
@@ -27,8 +36,17 @@ order) steps a device env in lockstep with the population forward
 action noise; every rollout's observations go into obs-stat sums, each
 rollout with probability ``calc_obstat_prob`` when it lies in (0, 1); the
 sums merge into the running stats when the model normalizes observations
-and ``calc_obstat_prob`` > 0 (es.py:246-248, 356-363). A generation reads
-the device's results on the host once, after its update and eval episodes.
+and ``calc_obstat_prob`` > 0 (es.py:246-248, 356-363). A fixed-population
+generation reads the device's results on the host once, after its update
+and eval episodes. In quota mode the device arm follows the JAX package's
+:722-776: it estimates the rounds both quotas need from the last mean
+episode length (``_mean_len_est``, the cutoff at first), runs them, reads
+their lengths, and tops up until both quotas are met; then the update and
+the eval episodes of the pre-update θ (``_update_and_eval``'s order).
+
+``mirror_crn`` (host engine): a pair's θ+σε and θ−σε share the noop count
+and the engine episode seed (rollout_host.py ``mirror_pairs``). On a device
+env a pair always starts from one reset state, so it changes nothing there.
 
 Host-side draws (θ init, noise offsets, rollout seeds) come from one CPU
 ``torch.Generator`` seeded with ``seed``; ``_draw_round`` is the single
@@ -37,9 +55,7 @@ episodes'. On a device env a rollout seed seeds a generator on the device
 (``_episode_starts``) for the episodes' reset states, action noise and
 obs-stat sampling.
 
-Not ported yet: quota mode (episodes/timesteps per batch) and the JAX
-package's ``_update_and_eval``, mirrored pairs (``mirror_crn``), obs stats
-on the host engine, VINE dumps.
+Not ported yet: obs stats on the host engine.
 """
 
 from __future__ import annotations
@@ -59,6 +75,7 @@ from ..ops import fitness, obstat, optim
 from ..ops.noise import NoiseTable
 from ..ops.noise_gradient import noise_gradient
 from ..utils import tabular as tlogger
+from ..utils import vine
 from .rollout import collect_ref_batch, paired_reset, rollout_batch
 from .rollout_host import collect_ref_batch_host, rollout_host_batch
 
@@ -70,11 +87,19 @@ class ESConfig:
     l2coeff: float = 0.005
     noise_stdev: float = 0.02
     population_size: int = 0  # episodes per generation (gpu es.py:197)
+    episodes_per_batch: int = 0  # quota mode when either quota > 0 (es.py:230)
+    timesteps_per_batch: int = 0
+    eval_prob: float = 0.0  # the CPU stack's field; the loader turns it into num_eval_episodes
+    snapshot_freq: int = 0  # the CPU stack's field; ``main train --snapshot_freq`` sets the CLI's
     return_proc_mode: str = "centered_rank"
     episode_cutoff_mode: Any = "env_default"
     num_eval_episodes: int = 8  # noiseless episodes of θ per generation
     theta_hbm_budget: int = 2**31  # bytes allowed for one round's [2·pairs, D] θ batch
     calc_obstat_prob: float = 0.0  # share of rollouts feeding the obs stats (es.py:356-363)
+    eval_batch: int = 0  # pairs a round evaluates (0: the population's, 64 in quota mode)
+    mirror_crn: bool = False  # host engine: a pair's members share noops and engine episode seed
+    grad_chunk: int = 256  # pairs the gradient's plain version gathers at a time (K2 has no chunk)
+    vine_snapshot_dir: str = ""  # per-generation VINE dumps under this directory (es_modified.py)
 
 
 class CutoffState(NamedTuple):
@@ -138,8 +163,6 @@ class ESTrainer:
         seed: int = 0,
         device=None,
     ):
-        if config.population_size <= 0:
-            raise NotImplementedError("only fixed-population mode (population_size > 0) is ported yet")
         self.is_host_env = getattr(env, "is_host_env", False)
         if self.is_host_env and model.needs_ob_stat:
             raise NotImplementedError("obs stats on the host engine are not ported yet")
@@ -167,6 +190,8 @@ class ESTrainer:
         self.iteration = 0
         self.episodes_so_far = 0
         self.timesteps_so_far = 0
+        self._mean_len_est = float(self.cutoff.tslimit)  # quota mode's episode-length estimate
+        self.last_dispatches: list = []  # quota mode, device env: the rounds of each estimate
         self.last_stats: Optional[GenStats] = None
         self._tstart = time.time()
 
@@ -198,15 +223,29 @@ class ESTrainer:
 
     # -------------------------------------------------------------- rounds
 
+    @property
+    def quota_mode(self) -> bool:
+        return self.config.episodes_per_batch > 0 or self.config.timesteps_per_batch > 0
+
     def _npairs_round(self) -> int:
-        """Pairs a round evaluates: the population's, capped by the θ
-        budget and, on the host engine, by the slot count."""
+        """Pairs a round evaluates (the JAX package's es.py:616-629):
+        ``eval_batch`` when set; else the population's, or 64 in quota mode,
+        capped by the θ budget; on the host engine, at most half the
+        slots."""
         cfg = self.config
         cap = max(1, int(cfg.theta_hbm_budget) // (2 * self.model.num_params * 4))
-        npairs = min(cfg.population_size // 2, cap)
+        if cfg.eval_batch:
+            npairs = cfg.eval_batch
+        elif cfg.population_size:
+            npairs = min(max(cfg.population_size // 2, 1), cap)
+        else:
+            npairs = min(64, cap)
         if self.is_host_env:
             npairs = min(npairs, self.env.batch_size // 2)
         return max(npairs, 1)
+
+    def _quotas_met(self, episodes: int, timesteps: int) -> bool:
+        return episodes >= self.config.episodes_per_batch and timesteps >= self.config.timesteps_per_batch
 
     def _perturbed(self, idxs: torch.Tensor) -> torch.Tensor:
         """``[2n, D]``: θ + σε for each offset, then θ − σε."""
@@ -225,8 +264,9 @@ class ESTrainer:
     def _host_rollout(self, npairs: int, collect_bc_traj: bool = False):
         """θ±σε for ``npairs`` pairs on the first ``2·npairs`` engine slots;
         the reference stats are computed for those members only, and
-        unused slots run copies of the last member and its stats. Returns
-        (idxs, the engine's RolloutResult over every slot)."""
+        unused slots run copies of the last member and its stats; with
+        ``mirror_crn`` a pair's slots share their draws. Returns (idxs, the
+        engine's RolloutResult over every slot)."""
         idxs, seed = self._draw_round(npairs)
         thetas = self._perturbed(idxs)
         with record_function("es.ref_stats"):
@@ -239,20 +279,22 @@ class ESTrainer:
         with record_function("es.rollout"):
             res = rollout_host_batch(
                 self.env, self.model.make_batch_act(), (thetas, stats), seed, int(self.cutoff.tslimit), self.device,
-                collect_bc_traj=collect_bc_traj,
+                collect_bc_traj=collect_bc_traj, mirror_pairs=npairs if self.config.mirror_crn else 0,
             )
         return idxs, res
 
     def _host_round(self, npairs: int):
         """One antithetic round (``_host_rollout``). Returns (idxs, returns
-        [n,2], sign returns [n,2], lengths [n,2], bc [n,2,·]) as numpy."""
+        [n,2], sign returns [n,2], lengths [n,2], bc [n,2,·], engine episode
+        seeds [n,2]) as numpy."""
         idxs, res = self._host_rollout(npairs)
-        return idxs, *(pair_columns(x, npairs) for x in (res.returns, res.sign_returns, res.lengths, res.bc))
+        return idxs, *(pair_columns(x, npairs) for x in (res.returns, res.sign_returns, res.lengths, res.bc,
+                                                          res.ep_seeds))
 
-    def _host_eval(self, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    def _host_eval(self, seed: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Noiseless episodes of θ on the first ``n = min(num_eval_episodes,
         slots)`` engine slots, every slot with θ and one member's reference
-        stats (es.py:588-611). Returns (returns [n], lengths [n])."""
+        stats (es.py:588-611). Returns (returns [n], lengths [n], bc [n, ·])."""
         n = min(self.config.num_eval_episodes, self.env.batch_size)
         thetas = self.theta[None].expand(n, -1)
         stats = None
@@ -263,7 +305,7 @@ class ESTrainer:
             self.env, self.model.make_batch_act(), (thetas, stats), seed, int(self.cutoff.tslimit), self.device,
             n_slots=n,
         )
-        return res.returns[:n], res.lengths[:n]
+        return res.returns[:n], res.lengths[:n], res.bc[:n]
 
     def _device_params(self, thetas: torch.Tensor, ctx):
         if self.model.needs_ref_batch:
@@ -274,8 +316,8 @@ class ESTrainer:
         """One antithetic round on the device env (the JAX package's
         ``_perturbed_round_body``): 2·npairs slots, pairs from one reset
         state. Returns (idxs, returns [n,2], sign returns [n,2], lengths
-        [n,2], bc [n,2,·], ob_sum, ob_sumsq, ob_count), on the device but
-        idxs."""
+        [n,2], bc [n,2,·], ob_sum, ob_sumsq, ob_count, the rollout seed), on
+        the device but idxs and the seed."""
         idxs, seed = self._draw_round(npairs)
         state, gen = self._episode_starts(seed, npairs, paired=True)
         thetas = self._perturbed(idxs)
@@ -290,13 +332,13 @@ class ESTrainer:
             )
         pair = lambda x: torch.stack([x[:npairs], x[npairs:]], dim=1)  # noqa: E731
         return (idxs, pair(res.returns), pair(res.sign_returns), pair(res.lengths), pair(res.bc),
-                res.ob_sum, res.ob_sumsq, res.ob_count)
+                res.ob_sum, res.ob_sumsq, res.ob_count, seed)
 
     def _device_eval(self, seed: int):
         """``num_eval_episodes`` noiseless episodes of θ on the device env,
         each from its own reset state (the JAX package's
-        ``_eval_theta_body``). Returns (returns [n], lengths [n]) on the
-        device."""
+        ``_eval_theta_body``). Returns (returns [n], lengths [n], bc [n, ·])
+        on the device."""
         n = self.config.num_eval_episodes
         state, gen = self._episode_starts(seed, n, paired=False)
         thetas = self.theta[None].expand(n, -1)
@@ -306,7 +348,7 @@ class ESTrainer:
         else:
             params = thetas, self._model_ctx(False, gen)
         res = rollout_batch(self.env, self.model.make_batch_act(), params, state, int(self.cutoff.tslimit))
-        return res.returns, res.lengths
+        return res.returns, res.lengths, res.bc
 
     # ---------------------------------------------------------- generation
 
@@ -323,7 +365,8 @@ class ESTrainer:
         srets = torch.as_tensor(signreturns_n2, device=self.device)
         proc = self._process_returns(rets, srets)
         w = (proc[:, 0] - proc[:, 1]).contiguous()
-        g = noise_gradient(self.noise.noise, noise_idxs.to(self.device, torch.int32).contiguous(), w, self.model.num_params)
+        g = noise_gradient(self.noise.noise, noise_idxs.to(self.device, torch.int32).contiguous(), w,
+                           self.model.num_params, cfg.grad_chunk)
         g = g / rets.numel()  # es.py:296
         opt_state, theta, ratio = self.optimizer.update(self.opt_state, self.theta, -g + cfg.l2coeff * self.theta)
         return g, opt_state, theta, ratio
@@ -332,67 +375,108 @@ class ESTrainer:
         return self._host_generation() if self.is_host_env else self._device_generation()
 
     def _host_generation(self) -> GenStats:
+        """Rounds until the population (or both quotas) is met (the JAX
+        package's :772-801), the update from their returns, the eval
+        episodes of the pre-update θ."""
         cfg = self.config
         step_tstart = time.time()
         eval_seed = self._draw_eval_seed() if cfg.num_eval_episodes > 0 else None
         npairs = self._npairs_round()
+        target = cfg.population_size or 2 * npairs
         rounds = []
-        episodes = 0
-        while episodes < cfg.population_size:
+        episodes = timesteps = 0
+        while True:
             rounds.append(self._host_round(npairs))
             episodes += rounds[-1][3].size
+            timesteps += int(rounds[-1][3].sum())
+            if self._quotas_met(episodes, timesteps) if self.quota_mode else episodes >= target:
+                break
         idxs, *columns = zip(*rounds)
         noise_idxs = torch.cat(idxs)
-        returns_n2, srets_n2, lengths_n2, bc_n2 = (np.concatenate(c) for c in columns)
+        returns_n2, srets_n2, lengths_n2, bc_n2, seeds_n2 = (np.concatenate(c) for c in columns)
         with record_function("es.update"):
             g, opt_state, theta, ratio = self._compute_update(noise_idxs, returns_n2, srets_n2)
         gnorm = float(torch.sum(g * g))
-        eval_rets, eval_lens = np.zeros(0, np.float32), np.zeros(0, np.int32)
+        eval_rets, eval_lens, eval_bc = np.zeros(0, np.float32), np.zeros(0, np.int32), None
         if eval_seed is not None:
             with record_function("es.eval"):
-                eval_rets, eval_lens = self._host_eval(eval_seed)  # θ before the update
+                eval_rets, eval_lens, eval_bc = self._host_eval(eval_seed)  # θ before the update
         return self._finalize_generation(
             opt_state, theta, float(ratio), gnorm, returns_n2, lengths_n2, bc_n2, eval_rets, eval_lens, 0.0,
-            step_tstart,
+            step_tstart, noise_idxs, seeds_n2, eval_bc, eval_seed,
         )
 
+    def _device_rounds(self, npairs: int, obstat_prob: Optional[float]) -> list:
+        """A generation's rounds on the device env: a fixed population's
+        ⌈pairs / npairs⌉, or in quota mode the JAX package's estimate of the
+        rounds both quotas need and the top-ups (:722-776), one read of the
+        rounds' lengths on the host each."""
+        cfg = self.config
+        if not self.quota_mode:
+            total_pairs = max((cfg.population_size or 2 * npairs) // 2, 1)
+            return [self._device_round(npairs, obstat_prob) for _ in range(-(-total_pairs // npairs))]
+        rounds, episodes, timesteps = [], 0, 0
+        self.last_dispatches = []
+        while True:
+            rem_ep = max(cfg.episodes_per_batch - episodes, 0)
+            rem_ts = max(cfg.timesteps_per_batch - timesteps, 0)
+            r_ep = -(-rem_ep // (2 * npairs)) if rem_ep else 0
+            r_ts = -(-rem_ts // int(2 * npairs * max(self._mean_len_est, 1.0))) if rem_ts else 0
+            n = max(r_ep, r_ts, 1 if episodes == 0 else 0)
+            if n == 0:
+                break
+            batch = [self._device_round(npairs, obstat_prob) for _ in range(n)]
+            lens = torch.cat([r[3] for r in batch])
+            rounds += batch
+            self.last_dispatches.append(n)
+            episodes += 2 * npairs * n
+            timesteps += int(lens.sum())
+            self._mean_len_est = max(float(lens.double().mean()), 1.0)
+            if self._quotas_met(episodes, timesteps):
+                break
+        return rounds
+
     def _device_generation(self) -> GenStats:
-        """The JAX package's ``_fused_generation`` order: the rounds, the
-        update from their returns, the eval episodes of the pre-update θ;
-        then one read of the results on the host, and the obs-stat merge."""
+        """The JAX package's ``_fused_generation`` order (quota mode:
+        ``_update_and_eval``'s): the rounds, the update from their returns,
+        the eval episodes of the pre-update θ; then one read of the results
+        on the host, and the obs-stat merge."""
         cfg = self.config
         step_tstart = time.time()
         eval_seed = self._draw_eval_seed() if cfg.num_eval_episodes > 0 else None
-        total_pairs = max(cfg.population_size // 2, 1)
-        npairs = min(self._npairs_round(), total_pairs)
+        npairs = self._npairs_round()
+        if not self.quota_mode:
+            npairs = min(npairs, max((cfg.population_size or 2 * npairs) // 2, 1))
         p = cfg.calc_obstat_prob
         obstat_prob = p if self.model.needs_ob_stat and 0.0 < p < 1.0 else None
-        rounds = [self._device_round(npairs, obstat_prob) for _ in range(-(-total_pairs // npairs))]
+        rounds = self._device_rounds(npairs, obstat_prob)
         idxs = torch.cat([r[0] for r in rounds])
         rets, srets, lens, bcs = (torch.cat([r[i] for r in rounds]) for i in range(1, 5))
         ob_sum, ob_sumsq, ob_count = (sum(r[i] for r in rounds) for i in range(5, 8))
+        seeds_n2 = np.repeat(np.array([r[8] for r in rounds], np.int64), npairs)[:, None].repeat(2, axis=1)
         with record_function("es.update"):
             g, opt_state, theta, ratio = self._compute_update(idxs, rets, srets)
-        eval_rets = eval_lens = torch.zeros(0, device=self.device)
+        eval_rets = eval_lens = eval_bc = torch.zeros(0, device=self.device)
         if eval_seed is not None:
             with record_function("es.eval"):
-                eval_rets, eval_lens = self._device_eval(eval_seed)  # θ before the update
+                eval_rets, eval_lens, eval_bc = self._device_eval(eval_seed)  # θ before the update
         gnorm = torch.sum(g * g)
-        rets, lens, bcs, eval_rets, eval_lens, gnorm, ratio, count = (
-            x.cpu().numpy() for x in (rets, lens, bcs, eval_rets, eval_lens, gnorm, ratio, ob_count)
+        rets, lens, bcs, eval_rets, eval_lens, eval_bc, gnorm, ratio, count = (
+            x.cpu().numpy() for x in (rets, lens, bcs, eval_rets, eval_lens, eval_bc, gnorm, ratio, ob_count)
         )
         if self.model.needs_ob_stat and count > 0 and p > 0:  # es.py:246-248
             self.ob_stat = obstat.increment(self.ob_stat, ob_sum, ob_sumsq, ob_count)
         return self._finalize_generation(
             opt_state, theta, float(ratio), float(gnorm), rets, lens, bcs, eval_rets, eval_lens, float(count),
-            step_tstart,
+            step_tstart, idxs, seeds_n2, eval_bc, eval_seed,
         )
 
     def _finalize_generation(
         self, opt_state, theta, ratio, gnorm, returns_n2, lengths_n2, bc_n2, eval_rets, eval_lens, ob_count,
-        step_tstart,
+        step_tstart, noise_idxs, seeds_n2, eval_bc, eval_seed,
     ) -> GenStats:
-        """State swap, cutoff curriculum, and the reference-named metrics."""
+        """State swap, cutoff curriculum, the reference-named metrics and
+        the VINE dumps."""
         self.cutoff = update_cutoff(self.cutoff, lengths_n2)
         self.opt_state, self.theta = opt_state, theta
         self.iteration += 1
@@ -430,6 +514,13 @@ class ESTrainer:
             "TimestepsPerSecondThisIter", int(lengths_n2.sum()) / max(step_tend - step_tstart, 1e-9)
         )
         tlogger.dump_tabular()
+        if self.config.vine_snapshot_dir:
+            vine.master_extract_cloud(self.config.vine_snapshot_dir, self.iteration, bc_n2, returns_n2, lengths_n2,
+                                      noise_idxs.numpy(), seeds_n2)
+            vine.master_extract_parent(
+                self.config.vine_snapshot_dir, self.iteration, eval_bc, eval_rets, eval_lens, self.config.noise_stdev,
+                model=self.model, theta=theta, ref_batch=self.ref_batch, seed=eval_seed or 0,
+            )
         self.last_stats = GenStats(
             returns_n2, lengths_n2, gnorm, ratio, step_tend - step_tstart, eval_rets, eval_lens, bc_n2
         )

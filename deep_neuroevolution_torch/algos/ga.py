@@ -18,7 +18,12 @@ GPU stack's GA loop (gpu_implementation/ga.py:104-280):
   ``selection_threshold`` with the elite forced in (ga.py:260-271), and
   their θ is cached so every offspring is one mutation away
   (base.py:127-138);
-* the reference's tabular metric names (ga.py:564-595 of the JAX package).
+* the reference's tabular metric names (ga.py:564-595 of the JAX package);
+* ``copy_population`` (gpu ga.py:75-82, the experiment's
+  ``load_population``): a population from either package's trainer
+  snapshot or a pickled list of chains;
+* with ``vine_snapshot_dir``, the VINE dumps of ga_modified.py:22-64 (a row
+  per offspring, the elite's test episodes as the parent).
 
 Genomes are GPU-style chains ``(idx₀, (idx, power), ...)``; their θ equals
 the JAX package's bit for bit from the same draws. The randomness (parent
@@ -27,8 +32,7 @@ seeded with ``seed``; ``_draw_offspring`` and ``_draw_seed`` are the only
 places it is drawn.
 
 Not ported yet: the device arm (``_ga_gen_rounds``, ``_eval_thetas``),
-CPU-style genomes (``reinit_theta``), ``copy_population``, VINE dumps,
-VirtualNoise and the pod trainers.
+CPU-style genomes (``reinit_theta``), VirtualNoise and the pod trainers.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from ..models.core import Model
 from ..ops import genome, schedules
 from ..ops.noise import NoiseTable, noise_rows
 from ..utils import tabular as tlogger
+from ..utils import vine
 from .es import parse_cutoff, update_cutoff
 from .rollout_host import collect_ref_batch_host, rollout_host_batch
 
@@ -62,6 +67,7 @@ class GAConfig:
     episode_cutoff_mode: Any = "env_default"
     timesteps: float = 1.5e9  # training budget (ga_atari_config.json)
     theta_hbm_budget: int = 2**31  # bytes allowed for one fitness round's [chunk, D] f32 θ
+    vine_snapshot_dir: str = ""  # per-generation VINE dumps under this directory (ga_modified.py:22-64)
 
 
 class Offspring(NamedTuple):
@@ -133,6 +139,31 @@ class GATrainer:
         midx = torch.randint(0, self.noise.size - self.model.num_params + 1, (n,), generator=self.gen)
         pidx = torch.randint(0, n_parents, (n,), generator=self.gen) if n_parents else torch.zeros(n, dtype=torch.int64)
         return pidx.numpy(), midx.numpy()
+
+    def copy_population(self, filename: str) -> None:
+        """Imports a population (gpu ga.py:75-82 and :161-162): a trainer
+        snapshot of either package (its ``ga.population``) or a pickled list
+        of chains or Offspring. Bare-int mutation entries of a chain become
+        ``(idx, 0.005)``, as the reference migrates them; imported chains
+        replace the parent cache, so the next generation draws fresh
+        genomes and carries the imported elites over."""
+        from ..utils.checkpoint import load_pickle
+
+        payload = load_pickle(filename)
+        if isinstance(payload, dict):
+            payload = payload["ga"]["population"] if "ga" in payload else payload["population"]
+
+        def migrate(seeds):
+            seeds = tuple(tuple(s) if isinstance(s, list) else s for s in seeds)
+            return (seeds[0],) + tuple(s if isinstance(s, tuple) else (s, 0.005) for s in seeds[1:])
+
+        self.state.population = [
+            Offspring(migrate(o.seeds), getattr(o, "fitness", float("-inf")), getattr(o, "training_steps", 0))
+            if hasattr(o, "seeds") else Offspring(migrate(o), float("-inf"), 0)
+            for o in payload
+        ]
+        self.cached_parent_thetas = None
+        self.cached_parent_seeds = []
 
     # ------------------------------------------------------------- genomes
 
@@ -238,9 +269,9 @@ class GATrainer:
             chains = [(int(midx[i]),) for i in range(n)]
         else:
             chains = [self.cached_parent_seeds[pidx[i]] + ((int(midx[i]), power),) for i in range(n)]
-        return self._selection_and_ladder(chains, rewards, lengths, power, tstart_iter)
+        return self._selection_and_ladder(chains, rewards, lengths, bcs, power, tstart_iter)
 
-    def _selection_and_ladder(self, chains, rewards, lengths, power, tstart_iter) -> GAState:
+    def _selection_and_ladder(self, chains, rewards, lengths, bcs, power, tstart_iter) -> GAState:
         """Truncation selection, the validation ladder, the elite test, the
         parent cache, counters and the tabular row (gpu ga.py:180-271)."""
         cfg = self.config
@@ -275,7 +306,8 @@ class GATrainer:
                 st.elite = validation_population[elite_idx]
                 # ---- elite test episodes, at the env's own cutoff
                 etheta = self._lookup_theta(st.elite.seeds)[None]
-                trets, _, _ = self._eval_chunked(etheta, self.env.default_timestep_cutoff, cfg.num_test_episodes)
+                trets, tlens, tbcs = self._eval_chunked(etheta, self.env.default_timestep_cutoff,
+                                                        cfg.num_test_episodes)
                 elite_test_mean = float(trets.mean())
                 if float(population_validation[elite_idx]) > st.curr_solution_val:
                     st.curr_solution = st.elite.seeds
@@ -337,6 +369,16 @@ class GATrainer:
         tlogger.record_tabular("TimeElapsedThisIter", dt)
         tlogger.record_tabular("TimeElapsed", st.time_elapsed)
         tlogger.dump_tabular()
+        if cfg.vine_snapshot_dir:  # ga_modified.py:22-64: GA has no pairs, so both columns are the offspring's
+            midx = np.array([c[-1][0] if len(c) > 1 and isinstance(c[-1], tuple) else c[0] for c in chains])
+            off = rewards[-n:]  # the offspring's rows, past the carried-over elites
+            vine.master_extract_cloud(cfg.vine_snapshot_dir, st.it, np.stack([bcs, bcs], axis=1),
+                                      np.stack([off, off], axis=1), np.stack([lengths, lengths], axis=1), midx,
+                                      np.zeros(n, np.int64))
+            if population_validation.size:
+                vine.master_extract_parent(cfg.vine_snapshot_dir, st.it, tbcs[0], trets[0], tlens[0], float(power),
+                                           model=self.model, theta=self._lookup_theta(st.elite.seeds),
+                                           ref_batch=self.ref_batch)
         return st
 
     def train(self, max_iterations: int = 10**9) -> GAState:

@@ -211,7 +211,7 @@ class NSESTrainer(ESTrainer):
         if not self.is_host_env:
             p = cfg.calc_obstat_prob
             obstat_prob = p if self.model.needs_ob_stat and 0.0 < p < 1.0 else None
-            idxs, rets, _, lens, bcs, ob_sum, ob_sumsq, ob_count = self._device_round(npairs, obstat_prob)
+            idxs, rets, _, lens, bcs, ob_sum, ob_sumsq, ob_count, _ = self._device_round(npairs, obstat_prob)
             if not (self.model.needs_ob_stat and cfg.calc_obstat_prob > 0):
                 ob_count = 0.0  # nothing is collected (the JAX package's collect_obstat)
             with record_function("nses.novelty"):

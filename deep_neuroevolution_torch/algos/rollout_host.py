@@ -23,10 +23,16 @@ final states (RAM bytes) as their behavior characterization and, with
 trajectory BC of NS-ES on Atari (policies.py:410-418). The RAM is read
 after each whole step, every group's engine step done.
 
-Not ported yet: obs-stat sampling, mirrored pairs,
-``rollout_host_vec`` (vector-observation engines) and the ``rollout_host``
-dispatcher between it and ``rollout_host_batch``; overlap through a second
-CUDA stream.
+``mirror_pairs = n`` (ES's ``mirror_crn``) makes slot i and slot n + i
+share their noop count and engine episode seed: mirrored sampling with
+common random numbers for a round of n antithetic pairs laid out as
+[θ+σε block; θ−σε block]. The draws are the JAX package's where 2n is the
+slot count; where the round is padded (2n < slots) the pad slots take the
+last pair's draws. Each result carries its slots' engine episode seeds.
+
+Not ported yet: obs-stat sampling, ``rollout_host_vec``
+(vector-observation engines) and the ``rollout_host`` dispatcher between
+it and ``rollout_host_batch``; overlap through a second CUDA stream.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ class RolloutResult(NamedTuple):
     # with collect_bc_traj: per slot, its RAM after each step it took,
     # concatenated, [length · final_state_size] f32; ragged across slots
     bc_traj: Optional[Tuple[np.ndarray, ...]] = None
+    ep_seeds: Optional[np.ndarray] = None  # [B] i32 the engine episode seed of each slot
 
 
 def _frames_to(frames: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -73,6 +80,7 @@ def rollout_host_batch(
     pipeline_groups: Optional[int] = None,
     n_slots: Optional[int] = None,
     collect_bc_traj: bool = False,
+    mirror_pairs: int = 0,
 ) -> RolloutResult:
     """Evaluate B policies on the B engine slots, one episode each.
 
@@ -81,7 +89,8 @@ def rollout_host_batch(
     defaults to the env's. ``n_slots`` < B runs only slots ``[0, n_slots)``
     with n_slots policies (the GA's validation and test ladder evaluates a
     handful of members). ``collect_bc_traj`` returns each slot's RAM
-    trajectory in ``bc_traj``."""
+    trajectory in ``bc_traj``. ``mirror_pairs`` > 0 is the round's pair
+    count for mirrored draws (see the module docstring)."""
     B, out_hw = henv.batch_size, henv.warp_size
     sub = None
     if n_slots is not None and n_slots < B:
@@ -92,9 +101,18 @@ def rollout_host_batch(
         G = 1
     Bg = B // G
     rng = np.random.default_rng(seed)
-    noops = rng.integers(1, 31, size=B)  # tf_atari.py:65
-    # fresh engine episode seeds on every call, drawn after the noops
-    ep_seeds = rng.integers(1, 2**31 - 1, size=B, dtype=np.int64).astype(np.int32)
+    if mirror_pairs:
+        n = int(mirror_pairs)
+        if not 0 < 2 * n <= B:
+            raise ValueError(f"mirror_pairs={n} pairs do not fit {B} slots")
+        # slot i and n + i take draw i; pad slots the last pair's
+        draw = np.concatenate([np.arange(n), np.arange(n), np.full(B - 2 * n, n - 1)])
+        noops = rng.integers(1, 31, size=n)[draw]
+        ep_seeds = rng.integers(1, 2**31 - 1, size=n, dtype=np.int64).astype(np.int32)[draw]
+    else:
+        noops = rng.integers(1, 31, size=B)  # tf_atari.py:65
+        # fresh engine episode seeds on every call, drawn after the noops
+        ep_seeds = rng.integers(1, 2**31 - 1, size=B, dtype=np.int64).astype(np.int32)
     henv.reset(noops, indices=sub, max_frames=timestep_limit * 4, seeds=ep_seeds)
 
     frames0 = henv.observe(indices=sub)
@@ -145,7 +163,7 @@ def rollout_host_batch(
         if rams:
             rows = np.concatenate(rams)[np.argsort(np.concatenate(ram_slots), kind="stable")]
         trajs = tuple(t.reshape(-1) for t in np.split(rows, np.cumsum(length)[:-1]))
-    return RolloutResult(ret, sret, length, henv.final_state(indices=sub), trajs)
+    return RolloutResult(ret, sret, length, henv.final_state(indices=sub), trajs, ep_seeds)
 
 
 def collect_ref_batch_host(henv, seed: int, device: torch.device, batch_size: int = 128) -> torch.Tensor:

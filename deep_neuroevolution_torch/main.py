@@ -13,6 +13,10 @@ The counterpart of the JAX package's main.py ``cmd_train``:
     python -m deep_neuroevolution_torch.main train --exp_file configurations/es_gym_config.json
 
     python -m deep_neuroevolution_torch.main train --exp_file configurations/maze_nses.json --iterations 3
+
+    python -m deep_neuroevolution_torch.main train --exp_file configurations/frostbite_es.json \
+        --log_dir logs/frostbite_es --iterations 0 --snapshot_freq 20
+    python -m deep_neuroevolution_torch.train configurations/frostbite_es.json
     python -m deep_neuroevolution_torch.main train --exp_file configurations/frostbite_nses.json
     python -m deep_neuroevolution_torch.main train --exp_file configurations/frostbite_nsres.json
 
@@ -24,10 +28,24 @@ frostbite_nsres.json, whose ``algo_type`` picks NS or NSR). maze_es.json,
 es_gym_config.json and maze_nses.json run on the device envs (Hard Maze,
 CartPole); the frostbite files on the ToyCatch engine with EpisodicLife.
 
+frostbite_es.json runs ES in quota mode (5000 episodes and 10,000 steps a
+generation).
+
 It runs on the CUDA device unless ``--device cpu`` is given, and exits with
 the "no CUDA device" error where there is none. Each generation prints the
-reference's tabular row. ``--profile_dir`` traces the last generation with
-``torch.profiler``. Not ported yet: snapshots and resume, ``replay``.
+reference's tabular row. ``--iterations`` generations run (default 1;
+0 runs until the process is stopped, or a GA's timestep budget is spent).
+
+Long runs (the JAX package's main.py:67-104): with ``--log_dir``, a run
+resumes from ``<log_dir>/snapshot.pkl`` when it is there (``--no_resume``
+starts afresh), and every ``--snapshot_freq`` generations (default 10;
+0 never) writes that trainer snapshot and a policy file
+``snapshot_iterNNNNN_rewR.pkl`` (utils/checkpoint.py), named by the
+trainer's own generation count, which a resumed run carries on; the
+trainer snapshot is written once more at the end. ``--exp_str`` takes the
+experiment as JSON instead of ``--exp_file``. ``--profile_dir`` traces the
+last generation with ``torch.profiler`` (with ``--iterations 0``, the
+first). Not ported yet: ``replay``.
 """
 
 from __future__ import annotations
@@ -37,28 +55,46 @@ import json
 import os
 import sys
 
+import numpy as np
+
 from .device import NoCudaDevice
 
 
 def cmd_train(args):
-    """Run ``args.iterations`` generations; returns the trainer, its engine
-    closed."""
-    from .utils import config, tabular as tlogger
+    """Run ``args.iterations`` generations (0: until stopped); returns the
+    trainer, its engine closed."""
+    from .utils import checkpoint, config, tabular as tlogger
 
-    with open(args.exp_file) as f:
-        exp = json.load(f)
+    if args.exp_file:
+        with open(args.exp_file) as f:
+            exp = json.load(f)
+    else:
+        exp = json.loads(args.exp_str)
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
         tlogger.start(args.log_dir)
     tlogger.log(f"experiment: {json.dumps(exp, sort_keys=True)}")
     overrides = json.loads(args.overrides) if args.overrides else {}
     trainer = config.load_experiment(exp, seed=args.seed, overrides=overrides, device=args.device, algo=args.algo)
+    snap_path = os.path.join(args.log_dir, "snapshot.pkl") if args.log_dir else None
     try:
-        if args.profile_dir:
-            trainer.train(args.iterations - 1)
-            profile_generation(trainer, args.profile_dir)
-        else:
-            trainer.train(args.iterations)
+        if snap_path and os.path.exists(snap_path) and not args.no_resume:
+            tlogger.log(f"resuming from {snap_path}")
+            checkpoint.load_trainer(snap_path, trainer)
+        done = 0
+        while args.iterations == 0 or done < args.iterations:
+            if _is_ga(trainer) and trainer.state.timesteps_so_far >= trainer.config.timesteps:
+                break  # the GA's timestep budget is spent
+            if args.profile_dir and (done == args.iterations - 1 or args.iterations == 0 and done == 0):
+                stats = profile_generation(trainer, args.profile_dir)
+            else:
+                stats = trainer.train_step()
+            done += 1
+            generation = _generations(trainer)
+            if snap_path and args.snapshot_freq and generation % args.snapshot_freq == 0:
+                save_snapshots(trainer, args.log_dir, stats)
+        if snap_path:
+            checkpoint.save_trainer(snap_path, trainer)
     finally:
         trainer.close()
         if args.log_dir:
@@ -66,10 +102,41 @@ def cmd_train(args):
     return trainer
 
 
-def profile_generation(trainer, out_dir: str) -> None:
+def _is_ga(trainer) -> bool:
+    from .algos.ga import GATrainer
+
+    return isinstance(trainer, GATrainer)
+
+
+def _generations(trainer) -> int:
+    """The generations a trainer has run, resumed ones included."""
+    return trainer.state.it if _is_ga(trainer) else trainer.iteration
+
+
+def save_snapshots(trainer, log_dir: str, stats):
+    """The trainer snapshot ``<log_dir>/snapshot.pkl`` and a policy file whose
+    reward is the generation's mean eval return, else its mean return (else
+    a GA's elite fitness). Returns the policy file's path."""
+    from .utils import checkpoint, tabular as tlogger
+
+    path = os.path.join(log_dir, "snapshot.pkl")
+    checkpoint.save_trainer(path, trainer)
+    rew = None
+    for name in ("eval_returns", "returns"):
+        r = getattr(stats, name, None)
+        if r is not None and np.size(r):
+            rew = float(np.mean(r))
+            break
+    policy = checkpoint.save_policy_snapshot_auto(log_dir, trainer, _generations(trainer), rew)
+    tlogger.log(f"saved snapshot to {path}" + (f" + {policy}" if policy else ""))
+    return policy
+
+
+def profile_generation(trainer, out_dir: str):
     """One generation under ``torch.profiler``: writes ``trace.json.gz`` (the
     timeline) and ``summary.txt`` (time by span and kernel, and the share
-    of the generation's wall time the device ran kernels or copies)."""
+    of the generation's wall time the device ran kernels or copies).
+    Returns the generation's stats."""
     import time
 
     import torch
@@ -80,7 +147,7 @@ def profile_generation(trainer, out_dir: str) -> None:
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if trainer.device.type == "cuda" else [])
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        trainer.train_step()
+        stats = trainer.train_step()
         if trainer.device.type == "cuda":
             torch.cuda.synchronize(trainer.device)
         wall = time.perf_counter() - t0
@@ -101,16 +168,21 @@ def profile_generation(trainer, out_dir: str) -> None:
     with open(os.path.join(out_dir, "summary.txt"), "w") as f:
         f.write("\n".join(lines))
     print(lines[0], flush=True)
+    return stats
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="deep_neuroevolution_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("train", help="run an ES, GA, RS or NS-ES experiment (GPU-stack or CPU-stack JSON schema)")
-    t.add_argument("--exp_file", required=True, help="experiment JSON path")
+    exp = t.add_mutually_exclusive_group(required=True)
+    exp.add_argument("--exp_file", help="experiment JSON path")
+    exp.add_argument("--exp_str", help="experiment JSON inline")
     t.add_argument("--algo", choices=["es", "ga", "rs", "nses"], help="algorithm (default: from the file)")
-    t.add_argument("--log_dir", default="", help="log.txt and metrics.jsonl go here")
-    t.add_argument("--iterations", type=int, default=1, help="generations to run")
+    t.add_argument("--log_dir", default="", help="log.txt, metrics.jsonl, TensorBoard events and snapshots go here")
+    t.add_argument("--iterations", type=int, default=1, help="generations to run (0: until stopped)")
+    t.add_argument("--snapshot_freq", type=int, default=10, help="trainer and policy snapshots every N generations")
+    t.add_argument("--no_resume", action="store_true", help="ignore <log_dir>/snapshot.pkl")
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--overrides", help='JSON, e.g. \'{"game": "toy", "population_size": 512}\'')
     t.add_argument("--device", default=None, help="cuda (default) or cpu")

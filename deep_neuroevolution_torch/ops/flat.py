@@ -9,8 +9,9 @@ Population use: ``unflatten`` also takes a stacked ``[B, D]`` θ and returns
 ``[B, *shape]`` views.
 
 ``scale_by_vector`` is the GPU stack's genome init scale (θ₀ = ε·scale_by;
-the JAX package's flat.py:141-168), bit-exact with the JAX package's. Not ported yet:
-``reinit_theta`` (CPU-style genomes) and ``partial_load``.
+the JAX package's flat.py:141-168), bit-exact with the JAX package's.
+``partial_load`` is the warm start's surgery (flat.py:149 of the JAX
+package). Not ported yet: ``reinit_theta`` (CPU-style genomes).
 """
 
 from __future__ import annotations
@@ -114,3 +115,19 @@ def scale_by_vector(
     return torch.cat(
         [torch.full((s.size,), default_scale_by(s, style), dtype=torch.float32) for s in specs]
     ).to(device or "cpu")
+
+
+def partial_load(theta_big: torch.Tensor, specs_big: Sequence[ParamSpec], parts_small) -> torch.Tensor:
+    """Warm-start surgery (policies.py:219-249 ``initialize_from``): each of a
+    smaller policy's arrays (name → numpy array or tensor, the larger
+    model's names) goes into the prefix slice of the larger one's tensor of
+    that name; everything else keeps ``theta_big``'s values. Returns a new
+    flat θ on ``theta_big``'s device."""
+    parts = {k: v.clone() for k, v in unflatten(theta_big.detach(), specs_big).items()}
+    for name, small in parts_small.items():
+        small = small.detach().float() if torch.is_tensor(small) else torch.from_numpy(np.array(small, np.float32))
+        big = parts[name]
+        if small.ndim != big.ndim or any(b < s for b, s in zip(big.shape, small.shape)):
+            raise ValueError(f"{name}: a {tuple(small.shape)} array does not fit the prefix of {tuple(big.shape)}")
+        big[tuple(slice(0, d) for d in small.shape)] = small.to(big.device)
+    return flatten(parts, specs_big)

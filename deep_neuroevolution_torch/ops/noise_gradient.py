@@ -44,12 +44,16 @@ def _check(table: torch.Tensor, idxs: torch.Tensor, weights: torch.Tensor, dim: 
             raise IndexError(f"noise offsets [{lo}, {hi}] + dim={dim} outside table of {table.shape[0]}")
 
 
-def noise_gradient(table: torch.Tensor, idxs: torch.Tensor, weights: torch.Tensor, dim: int) -> torch.Tensor:
+def noise_gradient(table: torch.Tensor, idxs: torch.Tensor, weights: torch.Tensor, dim: int,
+                   chunk: int = 256) -> torch.Tensor:
     """g [dim] f32. A CUDA tensor launches the kernel; a CPU tensor runs the
-    plain version; any other device raises."""
+    plain version, which gathers ``chunk`` pairs' slices at a time (ES's
+    ``grad_chunk``); any other device raises. The kernel has no chunk: it
+    sorts and walks every pair in one launch, so ``chunk`` does not reach
+    it."""
     _check(table, idxs, weights, dim)
     if table.device.type == "cpu":
-        return noise_gradient_plain(table, idxs, weights, dim)
+        return noise_gradient_plain(table, idxs, weights, dim, chunk)
     if table.device.type != "cuda":
         raise ValueError(f"noise_gradient runs on cuda or cpu tensors, not {table.device}")
     g = torch.empty(dim, dtype=torch.float32, device=table.device)

@@ -13,9 +13,11 @@ The counterpart of the JAX package's utils/config.py. Two schemas:
   on a GA file.
 * CPU stack (es_distributed): {"config": {...}, "env_id", "policy":
   {"type", "args"}, "optimizer", "population_size"} (config.py:264-313 of
-  the JAX package). ``eval_prob`` sets the eval-episode count as there:
-  ``eval_prob · episodes_per_batch`` (at least 1) when both are set, else
-  8. A file with "novelty_search" (or ``algo`` "nses") runs NS-ES, as the
+  the JAX package). ES runs in quota mode when ``episodes_per_batch`` or
+  ``timesteps_per_batch`` is set (``frostbite_es.json``). ``eval_prob``
+  sets the eval-episode count as there: ``eval_prob · episodes_per_batch``
+  (the file's, at least 1) when both are set, else 8. A file with
+  "novelty_search" (or ``algo`` "nses") runs NS-ES, as the
   JAX package's config.py:330-361 reads it: the population is
   ``episodes_per_batch`` (``timesteps_per_batch`` is not read),
   ``algo_type``, k, M, ``num_rollouts`` and ``selection_method`` come from
@@ -29,6 +31,21 @@ only backend here is ToyCatch ('toy'). ``<Game>NoFrameskip-v4`` ids run on
 ToyCatch with EpisodicLife on, as the JAX package runs them where ALE is
 missing (its config.py:34-53).
 
+Experiment keys the JAX package acts on, acted on where it reads them:
+
+* ``load_from`` (GPU-stack ES, the GA-seeded ES): θ₀ from the pickled seed
+  chain at that path, after ``.format(**exp)`` (its config.py:233-245);
+* ``load_population`` (GPU-stack GA and RS): ``GATrainer.copy_population``
+  of that file, either package's trainer snapshot or a list of chains
+  (:260-261);
+* ``mirror_crn`` (ES: a GPU-stack file's top level, a CPU-stack file's
+  "config"): mirrored pairs on the host engine;
+* the policy's ``init_from`` (CPU-stack ES): the warm start from a smaller
+  policy file of either package (:302-311, ops/flat.py ``partial_load``).
+
+Each is refused with ``NotImplementedError`` where the JAX package does not
+read it (so it is never dropped without a word).
+
 ``overrides`` patches a run without editing the file:
 
 * ``game`` — the env to run instead of the file's game (GPU schema). The
@@ -38,18 +55,16 @@ missing (its config.py:34-53).
   ``batch_size`` (slots), ``num_threads``, ``pipeline_groups``;
 * ``noise_size`` — noise-table length (default 250M, the reference's);
 * ``theta_hbm_budget`` — bytes allowed for one round's θ batch;
-* ``num_eval_episodes`` — ES only: noiseless episodes of θ per generation;
+* ES only: ``num_eval_episodes`` (noiseless episodes of θ per
+  generation), ``eval_batch`` (pairs a round), ``grad_chunk`` (pairs the
+  gradient's plain version gathers at a time), ``mirror_crn``; CPU-stack
+  ES only: ``episodes_per_batch`` and ``timesteps_per_batch`` (the quotas);
 * ``bc_mode`` — NS-ES only: 'final' or 'traj'.
 
-Not ported yet, and rejected with ``NotImplementedError`` rather than
-dropped: the experiment keys ``load_population`` (GA population import),
-``load_from`` (GA-seeded ES) and ``mirror_crn`` (mirrored common random
-numbers), and the ``mirror_crn`` override; in the CPU-stack schema, any
-``algo`` but es and nses, ES's quota mode (``episodes_per_batch`` or
-``timesteps_per_batch`` > 0), the policy's ``init_from`` warm start and
-MuJoCo env ids (so ``humanoid_nses.json`` too); NS-ES on a GPU-stack file.
-Rejected as unsupported: the ``eval_batch`` and ``grad_chunk`` overrides
-(the device arms' chunks).
+Not ported yet, and rejected with ``NotImplementedError``: in the CPU-stack
+schema, any ``algo`` but es and nses (so ``frostbite_ga.json``, the GA's
+CPU-style genomes), MuJoCo env ids (so ``humanoid*.json``); NS-ES on a
+GPU-stack file; the GA's ``eval_batch`` override (its device arm's chunk).
 """
 
 from __future__ import annotations
@@ -67,13 +82,22 @@ from ..device import resolve_device
 from ..envs.core import Continuous, Discrete
 from ..ops import optim
 from ..ops.noise import NoiseTable
+from . import checkpoint
 
 _OVERRIDES = {
     "game", "population_size", "episode_cutoff_mode", "env_kwargs", "noise_size", "theta_hbm_budget",
-    "num_eval_episodes", "bc_mode",
+    "num_eval_episodes", "bc_mode", "eval_batch", "grad_chunk", "mirror_crn", "episodes_per_batch",
+    "timesteps_per_batch",
 }
-# keys the JAX package acts on (its utils/config.py:222, 233-245, 260-261)
-_UNPORTED_KEYS = ("load_population", "load_from", "mirror_crn")
+_ES_OVERRIDES = ("num_eval_episodes", "eval_batch", "grad_chunk", "mirror_crn")
+_QUOTA_OVERRIDES = ("episodes_per_batch", "timesteps_per_batch")
+# experiment keys the JAX package acts on, and the (schema, algo) runs that
+# read them (its utils/config.py:222, 233-245, 260-261, 292)
+_KEYS_READ = {
+    "load_population": ({("gpu", "ga"), ("gpu", "rs")}, "a GPU-stack GA or RS experiment"),
+    "load_from": ({("gpu", "es")}, "a GPU-stack ES experiment"),
+    "mirror_crn": ({("gpu", "es"), ("cpu", "es")}, "ES (a GPU-stack file's top level, a CPU-stack file's 'config')"),
+}
 # the JAX package's envs/mujoco.py MUJOCO_FAMILIES: host envs not ported yet
 _MUJOCO_FAMILIES = (
     "Humanoid", "HumanoidStandup", "HalfCheetah", "Hopper", "Walker2d", "Ant", "Swimmer", "InvertedPendulum",
@@ -98,9 +122,9 @@ def resolve_env(env_id: str, **kwargs):
 
 
 def build_model(policy_type: str, args: Dict[str, Any], env) -> models.Model:
-    """A model for ``env`` from a reference policy or model name."""
-    if "init_from" in args:
-        raise NotImplementedError("the policy's 'init_from' warm start is not ported yet")
+    """A model for ``env`` from a reference policy or model name; the
+    policy's ``init_from`` is the trainer's business, not the model's."""
+    args = {k: v for k, v in args.items() if k != "init_from"}
     cls = models.get_model(policy_type)
     space = getattr(env, "action_space", None)
     if cls in (models.MujocoMLP, models.ContinuousMLP):
@@ -141,32 +165,39 @@ def load_experiment(
     cuda). ``noise_table``, when given, is used instead of building one
     (so a process that runs several experiments builds it once)."""
     overrides = dict(overrides or {})
-    if "mirror_crn" in overrides:
-        raise NotImplementedError("the 'mirror_crn' override is not ported yet")
     unknown = set(overrides) - _OVERRIDES
     if unknown:
         raise ValueError(f"unsupported overrides {sorted(unknown)}; supported: {sorted(_OVERRIDES)}")
     cpu_schema = "game" not in exp
-    for key in _UNPORTED_KEYS:
-        if key in exp or (cpu_schema and key in exp.get("config", {})):
-            raise NotImplementedError(f"experiment key {key!r} is not ported yet")
     if cpu_schema:
         if "env_id" not in exp:
             raise ValueError("an experiment needs a 'game' (GPU-stack schema) or an 'env_id' (CPU-stack schema)")
         algo = algo or exp.get("algo") or ("nses" if "novelty_search" in exp else "es")
-        if algo == "es":  # NS-ES reads episodes_per_batch as its population
-            for quota in ("episodes_per_batch", "timesteps_per_batch"):
-                if int(exp["config"].get(quota, 0)) > 0:
-                    raise NotImplementedError(f"quota mode ({quota!r} > 0) is not ported yet")
     else:
         algo = algo or ("ga" if "selection_threshold" in exp else "es")
+    run = ("cpu" if cpu_schema else "gpu", algo)
+    for key, (runs, where) in _KEYS_READ.items():
+        block = exp.get("config", {}) if cpu_schema and key == "mirror_crn" else exp
+        if (key in exp or key in exp.get("config", {})) and not (run in runs and key in block):
+            raise NotImplementedError(f"experiment key {key!r} is not ported yet for this run ({algo}): "
+                                      f"the JAX package reads it only in {where}")
+    if "init_from" in exp.get("policy", {}).get("args", {}) and run != ("cpu", "es"):
+        raise NotImplementedError("the policy's 'init_from' warm start is not ported yet for this run "
+                                  f"({algo}): the JAX package reads it only in a CPU-stack ES experiment")
     if algo == "nses" and not cpu_schema:
         raise NotImplementedError("algo 'nses': NS-ES runs CPU-stack files (with 'novelty_search'), not GPU-stack ones")
     ported = ("es", "nses") if cpu_schema else ("es", "ga", "rs")
     if algo not in ported:
         raise NotImplementedError(f"algo {algo!r} is not ported yet for this schema; ported: {', '.join(ported)}")
-    if "num_eval_episodes" in overrides and algo != "es":
-        raise ValueError("the 'num_eval_episodes' override applies to ES only")
+    if algo in ("ga", "rs") and "eval_batch" in overrides:
+        raise ValueError("unsupported overrides ['eval_batch'] for the GA and RS: their device arm's chunk is "
+                         "not ported yet (ROADMAP Queue 1 item 7)")
+    for key in _ES_OVERRIDES:
+        if key in overrides and algo != "es":
+            raise ValueError(f"the {key!r} override applies to ES only")
+    for key in _QUOTA_OVERRIDES:
+        if key in overrides and run != ("cpu", "es"):
+            raise ValueError(f"the {key!r} override applies to CPU-stack ES only (quota mode)")
     if "bc_mode" in overrides and algo != "nses":
         raise ValueError("the 'bc_mode' override applies to NS-ES only")
     device = resolve_device(device)
@@ -190,13 +221,23 @@ def load_experiment(
                 l2coeff=c.get("l2coeff", 0.005),
                 noise_stdev=c.get("noise_stdev", 0.02),
                 population_size=int(overrides.get("population_size", exp.get("population_size", 0))),
+                episodes_per_batch=int(overrides.get("episodes_per_batch", c.get("episodes_per_batch", 0))),
+                timesteps_per_batch=int(overrides.get("timesteps_per_batch", c.get("timesteps_per_batch", 0))),
+                eval_prob=c.get("eval_prob", 0.0),
+                snapshot_freq=int(c.get("snapshot_freq", 0)),
                 return_proc_mode=c.get("return_proc_mode", "centered_rank"),
                 episode_cutoff_mode=overrides.get("episode_cutoff_mode", c.get("episode_cutoff_mode", "env_default")),
                 num_eval_episodes=int(overrides.get("num_eval_episodes", default_eval_episodes(c))),
                 calc_obstat_prob=c.get("calc_obstat_prob", 0.0),
+                mirror_crn=bool(overrides.get("mirror_crn", c.get("mirror_crn", False))),
                 **budget,
+                **{k: int(overrides[k]) for k in ("eval_batch", "grad_chunk") if k in overrides},
             )
-            return _es_trainer(env, model, cfg, exp, noise_table, seed, device)
+            tr = _es_trainer(env, model, cfg, exp, noise_table, seed, device)
+            init_from = model_args.get("init_from")
+            if init_from:  # warm start (es.py:165-167 → policies.py:219-249)
+                tr.theta = checkpoint.initialize_from(init_from, model, tr.theta)
+            return tr
         if algo == "es":
             cfg = ESConfig(
                 l2coeff=exp.get("l2coeff", 0.005),
@@ -204,10 +245,15 @@ def load_experiment(
                 population_size=int(exp["population_size"]),
                 return_proc_mode=exp.get("return_proc_mode", "centered_rank"),
                 episode_cutoff_mode=exp.get("episode_cutoff_mode", "env_default"),
+                mirror_crn=bool(overrides.get("mirror_crn", exp.get("mirror_crn", False))),
                 **budget,
-                **{k: int(overrides[k]) for k in ("num_eval_episodes",) if k in overrides},
+                **{k: int(overrides[k]) for k in ("num_eval_episodes", "eval_batch", "grad_chunk") if k in overrides},
             )
-            return _es_trainer(env, model, cfg, exp, noise_table, seed, device)
+            tr = _es_trainer(env, model, cfg, exp, noise_table, seed, device)
+            if "load_from" in exp:  # the GA-seeded ES: θ₀ from a pickled seed chain (gpu es.py:164-171)
+                seeds = checkpoint.load_pickle(exp["load_from"].format(**exp))
+                tr.theta = checkpoint.theta_from_seed_chain(model, tr.noise, seeds).to(tr.device)
+            return tr
         cfg = GAConfig(
             population_size=int(exp["population_size"]),
             selection_threshold=int(exp.get("selection_threshold", 0)),
@@ -220,7 +266,10 @@ def load_experiment(
             **budget,
         )
         ctor = RSTrainer if algo == "rs" else GATrainer
-        return ctor(env, model, cfg, noise_table=noise_table, seed=seed, device=device)
+        tr = ctor(env, model, cfg, noise_table=noise_table, seed=seed, device=device)
+        if "load_population" in exp:  # gpu ga.py:161-162
+            tr.copy_population(exp["load_population"])
+        return tr
     except BaseException:
         if getattr(env, "is_host_env", False):
             env.close()  # the trainer that would own the engine does not exist

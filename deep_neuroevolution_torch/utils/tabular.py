@@ -1,9 +1,13 @@
-"""Tabular logger — ASCII table on stdout, log.txt and JSONL metrics.
+"""Tabular logger — ASCII table on stdout, log.txt, JSONL metrics and
+TensorBoard events.
 
 The port's own copy of the JAX package's utils/tabular.py (after
 gpu_implementation/tabular_logger.py:19-237), cut to what the port calls:
 start/stop, record_tabular, dump_tabular, log. The metric names are the
-reference's. Not ported yet: log levels and the TensorBoard events writer.
+reference's. With a log directory, each ``dump_tabular`` also appends one
+scalar event (step = the dump's ordinal) to an ``events.out.tfevents.*``
+file there (utils/tb_events.py), as the JAX package's :26-41 does. Not
+ported: log levels.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import sys
 import time
 from typing import Any, Dict, Optional
 
+from .tb_events import EventsWriter
+
 
 class TabularLogger:
     def __init__(self, log_dir: Optional[str] = None):
@@ -22,10 +28,13 @@ class TabularLogger:
         self._kvs: Dict[str, Any] = {}
         self._text = None
         self._jsonl = None
+        self._tb = None
+        self._step = 0
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._text = open(os.path.join(log_dir, "log.txt"), "a")
             self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+            self._tb = EventsWriter(log_dir)
 
     def record_tabular(self, key: str, val: Any) -> None:
         self._kvs[key] = val
@@ -56,6 +65,9 @@ class TabularLogger:
             rec["_time"] = time.time()
             self._jsonl.write(json.dumps(rec) + "\n")
             self._jsonl.flush()
+        if self._tb:
+            self._step += 1
+            self._tb.write_scalars(self._step, self._kvs)
         self._kvs.clear()
 
     def log(self, *args) -> None:
@@ -72,6 +84,8 @@ class TabularLogger:
             self._text.close()
         if self._jsonl:
             self._jsonl.close()
+        if self._tb:
+            self._tb.close()
 
 
 # module-level API, as the reference's tabular_logger exposes it

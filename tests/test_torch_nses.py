@@ -455,8 +455,10 @@ def test_ns_loader_rejections():
     with pytest.raises(NotImplementedError, match="NS-ES runs CPU-stack files"):
         tconfig.load_experiment(_exp("es_atari_config.json"), overrides={"game": "toy"}, device="cpu", algo="nses")
     maze = _exp("maze_nses.json")
-    with pytest.raises(NotImplementedError, match="quota mode"):  # ES on an NS file reads its quota
-        tconfig.load_experiment(maze, overrides={"noise_size": 3_000_000}, device="cpu", algo="es")
+    # ES on an NS file reads its quota: quota mode, 256 episodes, eval_prob · 256 eval episodes
+    tr = tconfig.load_experiment(maze, overrides={"noise_size": 3_000_000}, device="cpu", algo="es")
+    assert not isinstance(tr, tnses.NSESTrainer) and tr.quota_mode
+    assert (tr.config.episodes_per_batch, tr.config.timesteps_per_batch, tr.config.num_eval_episodes) == (256, 0, 2)
 
 
 def test_cli_trains_ns_on_the_cpu_and_needs_a_card_otherwise(quiet_loggers, monkeypatch):

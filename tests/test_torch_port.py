@@ -52,6 +52,9 @@ def test_every_module_is_listed():
     from deep_neuroevolution_torch.ops import _cuda_build
 
     assert "vbn_dqn_fused.cu" in [p.name for p in _cuda_build.sources()]
+    # long runs: checkpoints, VINE dumps, TensorBoard events, the launcher
+    for name in ("utils.checkpoint", "utils.vine", "utils.tb_events", "train"):
+        assert f"deep_neuroevolution_torch.{name}" in PORT_MODULES
 
 
 def test_no_jax_import_and_no_cpp_extension_in_the_port():
@@ -143,9 +146,13 @@ def test_ga_entry_points_raise_without_cuda(monkeypatch, algo):
         ga.GATrainer(types.SimpleNamespace(is_host_env=True), SmallDQN(num_actions=4), ga.GAConfig())
 
 
-def test_config_rejects_what_is_not_ported():
+def test_config_rejects_what_is_not_ported(tmp_path):
     exp = json.loads((ROOT / "configurations" / "es_atari_config.json").read_text())
-    from deep_neuroevolution_torch.utils import config
+    import pickle
+
+    import torch
+
+    from deep_neuroevolution_torch.utils import checkpoint, config
 
     with pytest.raises(NotImplementedError, match="no ALE"):
         config.load_experiment(exp, device="cpu")  # frostbite needs ALE
@@ -157,19 +164,30 @@ def test_config_rejects_what_is_not_ported():
         config.load_experiment(exp, overrides={"game": "toy"}, device="cpu", algo="nses")
 
     # keys the JAX package acts on (its utils/config.py:222, 233-245, 260-261)
-    # stop the loader, naming the key, instead of being dropped without a word
+    # act where it reads them; mirror_crn on a GA file, which its GA never
+    # reads, stops the loader, naming the key, instead of being dropped
     small = {"population_size": 4, "episode_cutoff_mode": 5, "noise_size": 3_000_000, "env_kwargs": {"batch_size": 4}}
     ga_toy, es_toy = (json.loads((ROOT / "configurations" / f).read_text())
                       for f in ("ga_toy_config.json", "es_toy_config.json"))
-    for base, key, value in ((ga_toy, "load_population", "/nonexistent/population.pkl"), (ga_toy, "mirror_crn", True),
-                             (es_toy, "mirror_crn", True), (es_toy, "load_from", "/nonexistent/seeds.pkl")):
-        with pytest.raises(NotImplementedError, match=f"{key}.*not ported yet"):
-            config.load_experiment({**base, key: value}, overrides=small, device="cpu")
     with pytest.raises(NotImplementedError, match="mirror_crn.*not ported yet"):
-        config.load_experiment(es_toy, overrides={**small, "mirror_crn": True}, device="cpu")
-    for chunk in ("eval_batch", "grad_chunk"):  # the device arms' chunks
-        with pytest.raises(ValueError, match="unsupported overrides"):
-            config.load_experiment(es_toy, overrides={**small, chunk: 64}, device="cpu")
+        config.load_experiment({**ga_toy, "mirror_crn": True}, overrides=small, device="cpu")
+    population = tmp_path / "population.pkl"
+    population.write_bytes(pickle.dumps([[7, 11], (5, (13, 0.002))]))
+    tr = config.load_experiment({**ga_toy, "load_population": str(population)}, overrides=small, device="cpu")
+    tr.close()
+    assert [o.seeds for o in tr.state.population] == [(7, (11, 0.005)), (5, (13, 0.002))]
+    seeds = tmp_path / "toy_seeds.pkl"  # load_from's path is formatted with the experiment's fields
+    seeds.write_bytes(pickle.dumps([123, (456, 0.02)]))
+    tr = config.load_experiment({**es_toy, "mirror_crn": True, "load_from": str(tmp_path / "{game}_seeds.pkl")},
+                                overrides=small, device="cpu")
+    tr.close()
+    assert tr.config.mirror_crn
+    assert torch.equal(tr.theta, checkpoint.theta_from_seed_chain(tr.model, tr.noise, [123, (456, 0.02)]))
+    tr = config.load_experiment(es_toy, overrides={**small, "mirror_crn": True, "eval_batch": 64, "grad_chunk": 32},
+                                device="cpu")
+    tr.close()
+    assert (tr.config.mirror_crn, tr.config.eval_batch, tr.config.grad_chunk) == (True, 64, 32)
+    assert tr._npairs_round() == 2  # eval_batch, capped by the 4 engine slots
     # num_eval_episodes: accepted for ES, as in the JAX package (its
     # config.py:223); the GA has no eval episodes
     tr = config.load_experiment(es_toy, overrides={**small, "num_eval_episodes": 3}, device="cpu")

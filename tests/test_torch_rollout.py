@@ -34,6 +34,7 @@ from deep_neuroevolution_torch.ops import fitness as tfit
 from deep_neuroevolution_torch.ops import optim as topt
 from deep_neuroevolution_torch.ops.noise import NoiseTable as TorchNoise
 from deep_neuroevolution_torch.ops.noise_gradient import noise_gradient
+from deep_neuroevolution_torch.utils import checkpoint
 from deep_neuroevolution_torch.utils import config as tconfig
 from deep_neuroevolution_torch.utils import tabular as ttab
 from deep_neuroevolution_tpu import envs as jenvs
@@ -324,21 +325,31 @@ def test_both_configurations_load_on_the_cpu():
         assert tr._npairs_round() == 2
 
 
-def test_config_rejects_what_is_not_ported():
+def test_config_rejects_what_is_not_ported(tmp_path):
     maze = _exp("maze_es.json")
     for exp, match in (
-        ({**maze, "config": {**maze["config"], "episodes_per_batch": 100}}, "quota mode"),
-        ({**maze, "config": {**maze["config"], "timesteps_per_batch": 100}}, "quota mode"),
         ({**maze, "algo": "ga"}, "algo 'ga'"),
-        ({**maze, "config": {**maze["config"], "mirror_crn": True}}, "mirror_crn"),
-        ({**maze, "policy": {"type": "ContinuousMLP", "args": {"init_from": "x.h5"}}}, "init_from"),
-        (_exp("humanoid.json"), "quota mode"),
+        (_exp("humanoid.json"), "MuJoCo"),
         ({**maze, "env_id": "Humanoid-v1"}, "MuJoCo"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             tconfig.load_experiment(exp, overrides={"noise_size": 3_000_000}, device="cpu")
     with pytest.raises(NotImplementedError, match="ported yet"):  # the GA device arm
         tconfig.load_experiment(_exp("es_gym_config.json"), overrides=SMALL, device="cpu", algo="ga")
+    # quota mode, mirror_crn and the policy's init_from now act
+    for quota in ("episodes_per_batch", "timesteps_per_batch"):
+        tr = tconfig.load_experiment({**maze, "config": {**maze["config"], quota: 100}},
+                                     overrides={"noise_size": 3_000_000}, device="cpu")
+        assert tr.quota_mode and getattr(tr.config, quota) == 100
+    tr = tconfig.load_experiment({**maze, "config": {**maze["config"], "mirror_crn": True}},
+                                 overrides={"noise_size": 3_000_000}, device="cpu")
+    assert tr.config.mirror_crn
+    policy = tmp_path / "x.h5"  # a policy file of the same model: the warm start copies all of it
+    theta = torch.from_numpy(np.random.RandomState(0).randn(tr.model.num_params).astype(np.float32))
+    checkpoint.save_policy_snapshot(str(policy), tr.model, theta)
+    tr = tconfig.load_experiment({**maze, "policy": {"type": "ContinuousMLP", "args": {"init_from": str(policy)}}},
+                                 overrides={"noise_size": 3_000_000}, device="cpu")
+    assert torch.equal(tr.theta, theta)
 
 
 @pytest.mark.parametrize("name", ["maze_es.json", "es_gym_config.json"])
