@@ -109,7 +109,33 @@ ends:
    its θ; phase 4's cut with ``mirror_crn`` and σ = 0 (a pair's θ halves
    equal): each pair's returns and lengths equal; one quota-mode
    generation of maze_es.json (1024 episodes, 300,000 steps) meets both
-   quotas.
+   quotas;
+20. three GA generations of configurations/frostbite_ga.json through the
+   loader with ``algo='ga'``, nothing cut but the game (Frostbite →
+   ToyCatch with EpisodicLife, 256 slots, SmallDQN at full width, CPU-style
+   chains, population 10, phase 13's table): K1 must launch, the chains be
+   bare indices of length 3 by the third generation, every cached parent's
+   θ equal its chain rebuilt whole by ``theta_from_seed_chain(..., 'cpu')``
+   within 1e-6, and the elite's forward on the card (K1) the CPU's. Seconds
+   and frames/s a generation, K1's launches by batch size;
+21. the GA and RS on the device arm through the loader, on phase 13's
+   table: configurations/es_gym_config.json whole as a GA (CartPole,
+   population 5000, cutoff 5000, GPU-style chains, the 10 × 30 + 200
+   ladder), configurations/maze_es.json as a GA (CPU-style chains, 512
+   members, 400 steps, two generations) and as RS (one), and the maze GA
+   with ``eval_batch`` 128 (four rounds). Seconds, env steps/s and rounds
+   a generation. The first fitness pass of the CartPole and maze GAs
+   replayed on the CPU from the card's draws and reset states (free-running
+   agreement, a reading), and its first round teacher-forced: every step's
+   observation, state and reward on the card within 1e-5 / 1e-4 of the
+   CPU's, no action apart but at a near tie;
+22. phase 4's cut of configurations/es_atari_config.json on each host
+   engine ``obs_mode`` ('gray', 'indexed', 'preproc'), one trainer a mode:
+   a warm-up generation each, then two timed ones each, in turns (gray,
+   indexed, preproc, preproc, indexed, gray): seconds, frames/s and bytes
+   uploaded a slot-step (every frame upload counted); K1 and K2 must
+   launch in each; the card's preprocessing of each mode's engine frames
+   against the CPU's ('preproc' bit for bit, the others within 1e-6).
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -1667,6 +1693,336 @@ def check_maze_quota(device, table) -> dict:
     return out
 
 
+# phase 20: frostbite_ga.json whole as a GA (CPU-style chains), on phase 13's table
+GA_CPU_CONFIG, GA_CPU_GENERATIONS = "frostbite_ga.json", 3
+
+
+def plain_forward(model, thetas, obs, device):
+    """Scores of ``thetas`` on ``obs`` through the split route, computed on
+    ``device`` (K1 for the fc on a card, its plain version on the CPU)."""
+    parts, ctx = model.prepare_batch_params((thetas.to(device), None))
+    return model.batch_scores_parts(parts, obs.to(device), ctx).cpu()
+
+
+def run_frostbite_ga(device, table) -> dict:
+    """Three generations of frostbite_ga.json through the loader with
+    ``algo='ga'``, nothing cut but the game (Frostbite → ToyCatch with
+    EpisodicLife, 256 slots, SmallDQN at full width, population 10 padded
+    to a 16-slot bucket, σ = 0.005): bare-index chains of length 3 by the
+    third generation; every cached parent's θ rebuilt whole by
+    ``theta_from_seed_chain(..., 'cpu')`` against the trainer's cache
+    (one rounding a step against two: within 1e-6, the JAX package's own
+    bound in its tests/test_ga.py); the elite's forward on four engine
+    stacks, card (K1) against the CPU."""
+    import torch
+
+    from deep_neuroevolution_torch.algos.rollout_host import collect_ref_batch_host
+    from deep_neuroevolution_torch.utils import checkpoint, config
+
+    exp = json.loads((ROOT / "configurations" / GA_CPU_CONFIG).read_text())
+    tr = config.load_experiment(exp, device=device, algo="ga", noise_table=table)
+    cfg = tr.config
+    print(f"frostbite_ga: {type(tr).__name__} {type(tr.model).__name__} D={tr.model.num_params} "
+          f"slots={tr.env.batch_size} {json.dumps(dataclasses.asdict(cfg))}", flush=True)
+    seconds, steps = [], []
+    try:
+        zero_counters()
+        for _ in range(GA_CPU_GENERATIONS):
+            before = tr.state.timesteps_so_far
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            steps.append(tr.state.timesteps_so_far - before)
+        launches = read_counters()
+        by_batch = by_batch_k1()
+        obs = collect_ref_batch_host(tr.env, 7, device, batch_size=4)  # four stacks of engine frames
+    finally:
+        tr.close()
+    print("launches " + json.dumps({**launches, "population_linear.by_batch": by_batch}), flush=True)
+    st = tr.state
+    require(launches["population_linear"] > 0, "frostbite_ga: K1 never launched")
+    require(st.it == GA_CPU_GENERATIONS and len(st.population) == cfg.population_size, "frostbite_ga: no 3 generations")
+    require(cfg.genome_style == "cpu" and all(isinstance(i, int) for o in st.population for i in o.seeds),
+            "frostbite_ga: chains are not CPU-style bare indices")
+    lens = [len(o.seeds) for o in st.population]
+    require(max(lens) == GA_CPU_GENERATIONS, f"frostbite_ga: chain lengths {sorted(set(lens))}")
+    require(all(math.isfinite(o.fitness) for o in st.population), "frostbite_ga: non-finite fitness")
+    gaps = []
+    for seeds, cached in zip(tr.cached_parent_seeds, tr.cached_parent_thetas):
+        whole = checkpoint.theta_from_seed_chain(tr.model, tr.noise, list(seeds), "cpu", cfg.noise_stdev)
+        gaps.append(float((whole - cached).abs().max()))
+    elite = tr._lookup_theta(st.elite.seeds)[None]
+    card, cpu = (plain_forward(tr.model, elite.expand(4, -1), obs, dev) for dev in (device, torch.device("cpu")))
+    err, tol = float((card - cpu).abs().max()), 1e-3 * max(1.0, float(cpu.abs().max()))
+    out = dict(config=GA_CPU_CONFIG, cut="Frostbite → ToyCatch", seconds=seconds, timesteps=steps,
+               frames_per_s=[4 * n / t for n, t in zip(steps, seconds)], chain_lengths=sorted(set(lens)),
+               parents=len(gaps), max_parent_chain=max(len(s) for s in tr.cached_parent_seeds),
+               cache_vs_whole_chain_max_abs=max(gaps), elite_forward_err=err, elite_forward_tol=tol,
+               elite=list(st.elite.seeds), k1_by_batch=by_batch)
+    print("frostbite_ga_run " + json.dumps(out), flush=True)
+    require(max(gaps) <= 1e-6, f"frostbite_ga: a cached parent differs from its whole chain by {max(gaps)}")
+    require(err <= tol, f"frostbite_ga: card forward of the elite disagrees with the CPU's: {err} > {tol}")
+    return dict(launches=launches, by_batch=by_batch, stats=out)
+
+
+# phase 21: the GA/RS device arm, on phase 13's table
+class DrawRecorder:
+    """A GA trainer's offspring draws, its reset states (copied to the
+    CPU) and its fitness passes' results, as the trainer makes them."""
+
+    def __init__(self, tr):
+        self.offspring, self.starts, self.passes = [], [], []
+        draw, starts, fitness = tr._draw_offspring, tr._episode_starts, tr._fitness_pass
+
+        def draw_rec(n, n_parents):
+            self.offspring.append(draw(n, n_parents))
+            return self.offspring[-1]
+
+        def starts_rec(seed, n):
+            state = starts(seed, n)
+            self.starts.append(type(state)(*(x.cpu() for x in state)))
+            return state
+
+        def fitness_rec(n, power, randomize):
+            out = fitness(n, power, randomize)
+            self.passes.append(dict(rounds=len(self.offspring), n=n, power=power, randomize=randomize, out=out))
+            return out
+
+        tr._draw_offspring, tr._episode_starts, tr._fitness_pass = draw_rec, starts_rec, fitness_rec
+
+
+def replay_first_pass_on_cpu(tr, rec: DrawRecorder, cpu_table, tol: float) -> dict:
+    """The card trainer's first fitness pass again on the CPU, free-running
+    from the card's draws and reset states: how many members' returns
+    agree within ``tol``. A reading, not a check: the float32 physics and
+    forwards round otherwise on the card, and an argmax near a tie or a
+    wall lets a long episode part (``teacher_forced_first_round`` checks
+    the steps)."""
+    from deep_neuroevolution_torch.algos.ga import GATrainer
+
+    first = rec.passes[0]
+    offspring, starts = list(rec.offspring[:first["rounds"]]), list(rec.starts[:first["rounds"]])
+    ctr = GATrainer(tr.env, tr.model, tr.config, noise_table=cpu_table, device="cpu")
+    ctr._draw_offspring = lambda n, n_parents: offspring.pop(0)
+    ctr._draw_seed = lambda: 0
+    ctr._episode_starts = lambda seed, n: starts.pop(0)
+    out = ctr._fitness_pass(first["n"], first["power"], first["randomize"])
+    require(not offspring and not starts, "replay: the CPU drew fewer rounds than the card")
+    require(np.array_equal(first["out"][1], out[1]), "replay: the CPU's noise offsets differ from the card's")
+    card, cpu, lc, lp = first["out"][2], out[2], first["out"][3], out[3]
+    part = np.abs(card - cpu) > tol
+    return dict(members=int(card.size), agree=int((~part).sum()), max_abs_diff=float(np.abs(card - cpu).max()),
+                tol=tol, shortest_parted_episode=int(np.minimum(lc, lp)[part].min()) if part.any() else None,
+                return_mean_card=float(card.mean()), return_mean_cpu=float(cpu.mean()))
+
+
+def teacher_forced_first_round(tr, rec: DrawRecorder, max_steps: int) -> dict:
+    """The first fitness round's members (their θ from the recorded draws,
+    their recorded reset states) stepped on the card for up to
+    ``max_steps`` steps, recording every state; then each recorded state
+    through the CPU's observe, forward and step, fed the card's actions.
+    Observations and float state fields within 1e-5, rewards within 1e-4
+    (maze coordinates up to ~200, where sin, cos and division round
+    otherwise on the card), the rest of the state exactly; discrete actions
+    equal except where the CPU's top two scores lie within 1e-5 (a near
+    tie), continuous ones within 1e-5."""
+    import torch
+
+    env, model, first = tr.env, tr.model, rec.passes[0]
+    pidx, midx = rec.offspring[0]
+    thetas = tr._offspring_thetas(pidx, midx, first["power"], first["randomize"])
+    parts = model.prepare_batch_params((thetas, None))[0]
+    state = type(rec.starts[0])(*(x.to(tr.device) for x in rec.starts[0]))
+    recs = []
+    for _ in range(max_steps):
+        obs = env.observe(state)
+        a = model.batch_act_parts(parts, obs)
+        nstate, r, d = env.step(state, a)
+        recs.append(tuple(x.cpu() for x in (*state, obs, a, *nstate, r)))
+        state = nstate
+        if bool(getattr(state, "done", d).all()):
+            break
+    cpu_parts = model.prepare_batch_params((thetas.cpu(), None))[0]
+    n = len(state)
+    errs = dict(obs=0.0, action=0.0, state=0.0, reward=0.0)
+    ties = flips = 0
+    discrete = env.discrete_action
+    for step in recs:
+        s, obs, a, ns, r = (type(state)(*step[:n]), step[n], step[n + 1], step[n + 2:2 * n + 2], step[-1])
+        obs_c = env.observe(s)
+        errs["obs"] = max(errs["obs"], float((obs_c - obs).abs().max()))
+        if discrete:
+            scores = model.batch_scores_parts(cpu_parts, obs_c)
+            top2 = scores.topk(2, dim=-1).values
+            near = (top2[:, 0] - top2[:, 1]) <= 1e-5 * top2[:, 0].abs().clamp(min=1.0)
+            wrong = scores.argmax(-1) != a
+            ties += int(near.sum())
+            flips += int((wrong & ~near).sum())
+        else:
+            errs["action"] = max(errs["action"], float((model.batch_act_parts(cpu_parts, obs_c) - a).abs().max()))
+        ns_c, r_c, _ = env.step(s, a)
+        for x, y in zip(ns_c, ns):
+            if x.is_floating_point():
+                errs["state"] = max(errs["state"], float((x - y).abs().max()))
+            else:
+                require(torch.equal(x, y), "teacher-forced: a discrete state field differs")
+        errs["reward"] = max(errs["reward"], float((r_c - r).abs().max()))
+    out = dict(members=int(thetas.shape[0]), steps=len(recs), near_ties=ties, action_flips=flips, **errs)
+    for k, tol in (("obs", 1e-5), ("action", 1e-5), ("state", 1e-4), ("reward", 1e-4)):
+        require(errs[k] <= tol, f"teacher-forced: card vs CPU {k} max abs err {errs[k]} > {tol}")
+    require(flips == 0, f"teacher-forced: {flips} actions differ away from a near tie")
+    return out
+
+
+def device_ga_case(device, table, cpu_table, name: str, algo: str, generations: int, overrides=None,
+                   replay_tol=None, forced_steps: int = 0) -> dict:
+    """``generations`` of ``algo`` on a device-env configuration through the
+    loader; seconds, env steps/s and rounds a generation; with
+    ``replay_tol``, the first fitness pass replayed on the CPU and its
+    first round teacher-forced for ``forced_steps`` steps."""
+    import torch
+
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / name).read_text())
+    tr = config.load_experiment(exp, device=device, algo=algo, noise_table=table, overrides=overrides)
+    rec = DrawRecorder(tr)
+    cfg = tr.config
+    print(f"{name} --algo {algo}: {type(tr.env).__name__} {type(tr.model).__name__} D={tr.model.num_params} "
+          f"{json.dumps(dataclasses.asdict(cfg))}", flush=True)
+    rows = []
+    for _ in range(generations):
+        before, rounds0, starts0 = tr.state.timesteps_so_far, len(rec.offspring), len(rec.starts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        steps = tr.state.timesteps_so_far - before
+        rows.append(dict(seconds=sec, env_steps=steps, env_steps_per_s=steps / sec,
+                         fitness_rounds=len(rec.offspring) - rounds0, ladder_rounds=len(rec.starts) - starts0 -
+                         (len(rec.offspring) - rounds0), best=float(tr.state.population[0].fitness)))
+    st = tr.state
+    lens = sorted({len(o.seeds) for o in st.population})
+    require(st.it == generations and len(st.population) == cfg.population_size, f"{name} {algo}: generations")
+    require(all(math.isfinite(o.fitness) for o in st.population), f"{name} {algo}: non-finite fitness")
+    styled = all(isinstance(s, int) for o in st.population for s in o.seeds[1:]) if cfg.genome_style == "cpu" else \
+        all(isinstance(s, tuple) for o in st.population for s in o.seeds[1:])
+    require(styled, f"{name} {algo}: chains are not {cfg.genome_style}-style")
+    with_parents = algo == "ga" and cfg.selection_threshold > 0
+    require(lens == ([1, 2] if with_parents and generations == 2 else [1]), f"{name} {algo}: chain lengths {lens}")
+    out = dict(config=name, algo=algo, overrides=overrides or {}, genome_style=cfg.genome_style,
+               population=cfg.population_size, eval_batch=cfg.eval_batch, generations=rows, chain_lengths=lens)
+    if replay_tol is not None:
+        out["card_vs_cpu_free_running"] = replay_first_pass_on_cpu(tr, rec, cpu_table, replay_tol)
+        out["card_vs_cpu_teacher_forced"] = teacher_forced_first_round(tr, rec, forced_steps)
+    print("device_ga_run " + json.dumps(out), flush=True)
+    return out
+
+
+def run_device_ga(device, table) -> list:
+    """The device arm: es_gym_config.json whole as a GA (CartPole,
+    population 5000, cutoff 5000, GPU-style chains, the 10 × 30 + 200
+    ladder); maze_es.json as a GA (CPU-style chains, 512 members, 400
+    steps, two generations) and as RS (one generation); the maze GA with
+    ``eval_batch`` 128 (four rounds a generation). The first fitness pass
+    of the CartPole GA and the maze GA replayed on the CPU, and its first
+    round teacher-forced (``teacher_forced_first_round``)."""
+    import torch
+
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
+
+    cpu_table = NoiseTable(table.noise.cpu())
+    try:
+        runs = [
+            device_ga_case(device, table, cpu_table, "es_gym_config.json", "ga", 1, replay_tol=0.0, forced_steps=500),
+            device_ga_case(device, table, cpu_table, "maze_es.json", "ga", 2, replay_tol=1e-3, forced_steps=400),
+            device_ga_case(device, table, cpu_table, "maze_es.json", "rs", 1),
+            device_ga_case(device, table, cpu_table, "maze_es.json", "ga", 1, overrides={"eval_batch": 128}),
+        ]
+    finally:
+        del cpu_table
+    cart, eb = runs[0], runs[3]
+    require(cart["generations"][0]["ladder_rounds"] == 2, "CartPole GA: the ladder is not one validation round "
+            "(10 × 30 episodes) and one test round (200)")
+    rounds = eb["generations"][0]["fitness_rounds"]
+    require(rounds == 4, f"eval_batch 128: {rounds} fitness rounds of 512 members")
+    torch.cuda.empty_cache()
+    return runs
+
+
+# phase 22: phase 4's cut of es_atari_config.json on each of the engine's
+# obs modes, one trainer a mode, the timed generations in turns
+OBS_MODES = ("gray", "indexed", "preproc")
+OBS_TURNS = ("gray", "indexed", "preproc", "preproc", "indexed", "gray")
+
+
+def run_obs_modes(device) -> dict:
+    """Phase 4's cut on each ``obs_mode``, one trainer a mode: a warm-up
+    generation each, then one timed generation a turn of ``OBS_TURNS``
+    (each mode twice, the order reversed the second time): seconds,
+    frames/s, the bytes uploaded a slot-step (every ``_frames_to`` call's
+    bytes over its rows); K1 and K2 must launch in each. Then the card's
+    preprocessing of each mode's engine frames against the CPU's: 'preproc'
+    bit for bit (one exact scale), 'gray' and 'indexed' within 1e-6 (cuBLAS
+    sums the resize in another order). Returns, by mode, its readings."""
+    import torch
+
+    from deep_neuroevolution_torch.algos import rollout_host
+    from deep_neuroevolution_torch.envs.preprocess import preprocess_obs
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / "es_atari_config.json").read_text())
+    upload = dict(bytes=0, rows=0)
+    real = rollout_host._frames_to
+
+    def counted(frames, dev):
+        upload["bytes"] += frames.nbytes
+        upload["rows"] += frames.shape[0]
+        return real(frames, dev)
+
+    trainers, runs = {}, {m: [] for m in OBS_MODES}
+    try:
+        for mode in OBS_MODES:
+            over = {**SMOKE_OVERRIDES, "env_kwargs": {**SMOKE_OVERRIDES["env_kwargs"], "obs_mode": mode}}
+            trainers[mode] = config.load_experiment(exp, device=device, overrides=over)
+            trainers[mode].train_step()  # warm-up
+        rollout_host._frames_to = counted
+        for mode in OBS_TURNS:
+            tr = trainers[mode]
+            upload.update(bytes=0, rows=0)
+            zero_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = tr.train_step()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches, steps = read_counters(), int(st.lengths.sum())
+            run = dict(obs_mode=mode, seconds=seconds, timesteps=steps, eval_timesteps=int(st.eval_lengths.sum()),
+                       frames_per_s=4 * steps / seconds, upload_bytes=upload["bytes"], slot_steps=upload["rows"],
+                       bytes_per_slot_step=upload["bytes"] / max(upload["rows"], 1),
+                       k1=launches["population_linear"], k2=launches["noise_gradient"], k1_by_batch=by_batch_k1())
+            print("es_obs_mode_generation " + json.dumps(run), flush=True)
+            require(run["k1"] > 0 and run["k2"] == 1, f"{mode}: K1 {run['k1']}, K2 {run['k2']} launches")
+            require(upload["rows"] >= steps + run["eval_timesteps"], f"{mode}: {upload['rows']} slot-steps uploaded")
+            require(bool(np.isfinite(st.returns).all()) and bool(torch.isfinite(tr.theta).all()), f"{mode}: not finite")
+            runs[mode].append(dict(run, pairs=int(st.returns.shape[0]), D=tr.model.num_params))
+        rollout_host._frames_to = real
+        for mode, tr in trainers.items():
+            frames = tr.env.observe()
+            card = preprocess_obs(torch.from_numpy(frames).to(device), mode).cpu()
+            err = float((card - preprocess_obs(torch.from_numpy(frames), mode)).abs().max())
+            require(err <= (0.0 if mode == "preproc" else 1e-6), f"{mode}: card preprocessing vs the CPU's: {err}")
+            runs[mode][0]["preprocess_card_vs_cpu"] = err
+    finally:
+        rollout_host._frames_to = real
+        for tr in trainers.values():
+            tr.close()
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -1864,7 +2220,26 @@ def main() -> int:
             maze_quota=check_maze_quota(device, table),
         )
     print("long_runs " + json.dumps(long_runs), flush=True)
+
+    with Phase("frostbite_ga.json generations (GA, CPU-style chains)"):
+        fga = run_frostbite_ga(device, table)
+    ns_k1["frostbite_ga"] = dict(launches=fga["launches"]["population_linear"], by_batch=fga["by_batch"])
+    with Phase("GA and RS on the device arm"):
+        run_device_ga(device, table)
     del table
+    torch.cuda.empty_cache()
+
+    with Phase("ES generations on each obs mode, in turns"):
+        obs_runs = run_obs_modes(device)
+    for mode, (first, *_) in obs_runs.items():
+        ns_k1[f"es_{mode}"] = dict(launches=first["k1"], by_batch=first["k1_by_batch"])
+        device_paths[f"es_{mode}"] = dict(launches=first["k2"], B=first["pairs"], D=first["D"])
+    print("es_obs_modes " + json.dumps(dict(
+        phase4_gray=dict(seconds=gen_s, frames_per_s=4 * timesteps / gen_s),
+        **{m: dict(seconds=[r["seconds"] for r in rs], frames_per_s=[r["frames_per_s"] for r in rs],
+                   bytes_per_slot_step=rs[0]["bytes_per_slot_step"],
+                   preprocess_card_vs_cpu=rs[0]["preprocess_card_vs_cpu"]) for m, rs in obs_runs.items()},
+    )), flush=True)
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, launches, k, **extra):

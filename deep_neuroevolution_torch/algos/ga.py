@@ -1,14 +1,19 @@
-"""Deep GA and random search on the host engine, over seed-chain genomes.
+"""Deep GA and random search over seed-chain genomes, on the host engine or
+a device env.
 
-The counterpart of the JAX package's algos/ga.py host-engine arm, after the
-GPU stack's GA loop (gpu_implementation/ga.py:104-280):
+The counterpart of the JAX package's algos/ga.py, after the GPU stack's GA
+loop (gpu_implementation/ga.py:104-280):
 
 * offspring = a uniformly drawn cached parent plus power·ε of a drawn noise
   row (ga.py:122-129); the first generation draws fresh genomes
   θ = ε·scale_by (base.py:121-125);
-* fitness = one episode each, on the engine's slots, in rounds capped so
-  one round's ``[chunk, D]`` f32 θ stays under ``theta_hbm_budget`` bytes;
-  each round is padded to a power-of-two slot bucket (``_eval_host``);
+* fitness = one episode each, in rounds capped so one round's ``[chunk, D]``
+  f32 θ stays under ``theta_hbm_budget`` bytes: on the engine's slots, each
+  round padded to a power-of-two slot bucket (``_eval_host``), or on a
+  device env in rounds of ``eval_batch`` members (all of them when 0),
+  each member's episode from its own reset state (``_eval_device``, the
+  JAX package's ``_ga_gen_rounds`` and ``_eval_thetas``, through
+  algos/rollout.py); a last round's surplus members are dropped;
 * truncation selection (ga.py:180), with the previous ``num_elites`` carried
   over at their recorded scores (es_distributed/ga.py:139-141); the top
   ``validation_threshold`` (the elite forced in) get
@@ -25,14 +30,19 @@ GPU stack's GA loop (gpu_implementation/ga.py:104-280):
 * with ``vine_snapshot_dir``, the VINE dumps of ga_modified.py:22-64 (a row
   per offspring, the elite's test episodes as the parent).
 
-Genomes are GPU-style chains ``(idx₀, (idx, power), ...)``; their θ equals
-the JAX package's bit for bit from the same draws. The randomness (parent
-and noise indices, rollout seeds) comes from one CPU ``torch.Generator``
-seeded with ``seed``; ``_draw_offspring`` and ``_draw_seed`` are the only
-places it is drawn.
+Genomes (ops/genome.py) are GPU-style chains ``(idx₀, (idx, power), ...)``
+(``genome_style='gpu'``) or the CPU stack's bare indices
+(``genome_style='cpu'``, es_distributed/ga.py:250-264): θ₀ =
+``reinit_theta`` of the raw row, every mutation of power ``noise_stdev``.
+Offspring and cached-prefix θ are one fused multiply-add a step, as the JAX
+package's jitted steps; a whole CPU-style chain is rebuilt with two
+roundings a step, as its eager ``_reconstruct``. The randomness (parent and
+noise indices, rollout seeds) comes from one CPU ``torch.Generator`` seeded
+with ``seed``; ``_draw_offspring`` and ``_draw_seed`` are the only places
+it is drawn, and on a device env a rollout seed seeds the generator of its
+round's reset states (``_episode_starts``).
 
-Not ported yet: the device arm (``_ga_gen_rounds``, ``_eval_thetas``),
-CPU-style genomes (``reinit_theta``), VirtualNoise and the pod trainers.
+Not ported yet: VirtualNoise and the pod trainers.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from ..ops.noise import NoiseTable, noise_rows
 from ..utils import tabular as tlogger
 from ..utils import vine
 from .es import parse_cutoff, update_cutoff
+from .rollout import collect_ref_batch, rollout_batch
 from .rollout_host import collect_ref_batch_host, rollout_host_batch
 
 
@@ -66,14 +77,17 @@ class GAConfig:
     mutation_power: Any = 0.002  # a number or a schedule dict (helper.py:46-88)
     episode_cutoff_mode: Any = "env_default"
     timesteps: float = 1.5e9  # training budget (ga_atari_config.json)
+    eval_batch: int = 0  # device env: members a rollout round evaluates; 0 → all of them
     theta_hbm_budget: int = 2**31  # bytes allowed for one fitness round's [chunk, D] f32 θ
+    genome_style: str = "gpu"  # 'gpu' (idx, power) chains | 'cpu' (bare indices, reinit + noise_stdev)
+    noise_stdev: float = 0.002  # CPU-style chains' mutation power (frostbite_ga.json)
     vine_snapshot_dir: str = ""  # per-generation VINE dumps under this directory (ga_modified.py:22-64)
 
 
 class Offspring(NamedTuple):
     """A genome and its record (gpu ga.py:83-99)."""
 
-    seeds: Tuple  # (init_idx, (idx, power), ...)
+    seeds: Tuple  # (init_idx, (idx, power), ...), or (init_idx, idx, ...) for CPU-style chains
     fitness: float
     training_steps: int
 
@@ -94,7 +108,7 @@ class GAState:
 
 
 class GATrainer:
-    """Deep GA on a host-engine env."""
+    """Deep GA on a host-engine env or a device env."""
 
     def __init__(
         self,
@@ -105,9 +119,10 @@ class GATrainer:
         seed: int = 0,
         device=None,
     ):
-        if not getattr(env, "is_host_env", False):
-            raise NotImplementedError("only host-engine envs are ported yet (the GA's device arm is not)")
+        if config.genome_style not in ("gpu", "cpu"):
+            raise ValueError(f"unknown genome_style {config.genome_style!r} (gpu|cpu)")
         self.device = resolve_device(device)
+        self.is_host_env = getattr(env, "is_host_env", False)
         self.env = env
         self.model = model
         self.config = config
@@ -125,13 +140,23 @@ class GATrainer:
         self.cached_parent_seeds: List[Tuple] = []
         self.ref_batch = None
         if model.needs_ref_batch:
-            self.ref_batch = collect_ref_batch_host(env, self._draw_seed(), self.device)
+            seed = self._draw_seed()
+            self.ref_batch = (collect_ref_batch_host(env, seed, self.device) if self.is_host_env
+                              else collect_ref_batch(env, self._episode_gen(seed), self.device))
 
     # --------------------------------------------------------------- draws
 
     def _draw_seed(self) -> int:
         """A rollout seed (it seeds the noop counts and engine episode seeds)."""
         return int(torch.randint(0, 2**31 - 1, (1,), generator=self.gen))
+
+    def _episode_gen(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _episode_starts(self, seed: int, n: int):
+        """Device env: the reset states of ``n`` episodes, from a rollout
+        seed."""
+        return self.env.reset(n, self._episode_gen(seed), self.device)
 
     def _draw_offspring(self, n: int, n_parents: int) -> Tuple[np.ndarray, np.ndarray]:
         """``n`` (parent index, noise offset) pairs; parent indices are 0
@@ -143,8 +168,9 @@ class GATrainer:
     def copy_population(self, filename: str) -> None:
         """Imports a population (gpu ga.py:75-82 and :161-162): a trainer
         snapshot of either package (its ``ga.population``) or a pickled list
-        of chains or Offspring. Bare-int mutation entries of a chain become
-        ``(idx, 0.005)``, as the reference migrates them; imported chains
+        of chains or Offspring. Bare-int mutation entries of a GPU-style
+        chain become ``(idx, 0.005)``, as the reference migrates them;
+        CPU-style chains keep their bare indices; imported chains
         replace the parent cache, so the next generation draws fresh
         genomes and carries the imported elites over."""
         from ..utils.checkpoint import load_pickle
@@ -155,6 +181,8 @@ class GATrainer:
 
         def migrate(seeds):
             seeds = tuple(tuple(s) if isinstance(s, list) else s for s in seeds)
+            if self.config.genome_style != "gpu":
+                return seeds
             return (seeds[0],) + tuple(s if isinstance(s, tuple) else (s, 0.005) for s in seeds[1:])
 
         self.state.population = [
@@ -171,28 +199,36 @@ class GATrainer:
         return noise_rows(self.noise.noise, torch.as_tensor(np.asarray(idxs, np.int64)), self.model.num_params)
 
     def _offspring_thetas(self, pidx: np.ndarray, midx: np.ndarray, power: float, randomize: bool) -> torch.Tensor:
-        """θ = ε·scale_by (fresh) or parents[pidx] + power·ε (base.py:121-125,
-        148-156), rounded as the JAX package rounds them (ops/genome.py); in
-        place on the gathered rows."""
+        """θ = ε·scale_by, or ``reinit_theta(ε)`` for CPU-style genomes
+        (fresh), or parents[pidx] + power·ε (base.py:121-125, 148-156),
+        rounded as the JAX package rounds them (ops/genome.py); in place on
+        the gathered rows but the re-init."""
         eps = self._rows(midx)
         if randomize:
-            return eps.mul_(self.scale_by)
+            return self.model.reinit_theta(eps) if self.config.genome_style == "cpu" else eps.mul_(self.scale_by)
         parents = self.cached_parent_thetas[torch.as_tensor(pidx, device=self.device)]
         return genome.mutate_(parents, power, eps)
 
     def _lookup_theta(self, seeds: Tuple) -> torch.Tensor:
         """θ of a chain: a cached parent, a cached parent plus its last
-        mutation, a fresh genome, or else the whole chain (base.py:127-145)."""
+        mutation (a bare index mutates with ``noise_stdev``), a fresh genome,
+        or else the whole chain (base.py:127-145; the JAX package's
+        ``_lookup_theta`` and ``_reconstruct``)."""
+        dim = self.model.num_params
         if seeds in self.cached_parent_seeds:
             return self.cached_parent_thetas[self.cached_parent_seeds.index(seeds)]
         if len(seeds) > 1 and seeds[:-1] in self.cached_parent_seeds:
             parent = self.cached_parent_thetas[self.cached_parent_seeds.index(seeds[:-1])]
-            idx, power = seeds[-1]
-            return genome.extend(parent, self.noise.noise, idx, power, self.model.num_params)
+            tail = seeds[-1]
+            idx, power = tail if isinstance(tail, tuple) else (tail, self.config.noise_stdev)
+            return genome.extend(parent, self.noise.noise, idx, power, dim)
+        if self.config.genome_style == "cpu":
+            return genome.reconstruct_cpu_style(self.noise.noise, seeds, dim, self.model.reinit_theta,
+                                                self.config.noise_stdev)
         if len(seeds) == 1:
             return self._rows([seeds[0]])[0] * self.scale_by
         idxs, powers = genome.pad_chains([seeds], len(seeds))
-        return genome.reconstruct_gpu_style(self.noise.noise, idxs[0], powers[0], self.model.num_params, self.scale_by)
+        return genome.reconstruct_gpu_style(self.noise.noise, idxs[0], powers[0], dim, self.scale_by)
 
     # ----------------------------------------------------------- evaluation
 
@@ -217,33 +253,48 @@ class GATrainer:
         )
         return res.returns[:n], res.lengths[:n], res.bc[:n]
 
+    def _eval_device(self, thetas: torch.Tensor, tslimit: int):
+        """One device-env round: an episode of each of ``thetas [n, D]``,
+        each from its own reset state (the JAX package's ``_eval_thetas``
+        and a round of ``_ga_gen_rounds``). Returns (returns [n], lengths
+        [n], bc [n, bc_dim]) on the device."""
+        state = self._episode_starts(self._draw_seed(), thetas.shape[0])
+        stats = self.model.batch_ref_stats(thetas, self.ref_batch) if self.model.needs_ref_batch else None
+        res = rollout_batch(self.env, self.model.make_batch_act(), (thetas, stats), state, int(tslimit))
+        return res.returns, res.lengths, res.bc
+
+    def _eval(self, thetas: torch.Tensor, tslimit: int):
+        return self._eval_host(thetas, tslimit) if self.is_host_env else self._eval_device(thetas, tslimit)
+
+    def _chunk(self, n: int) -> int:
+        """Members a round evaluates: at most the θ budget's
+        ``theta_hbm_budget // (4·D)``, and the engine's slots or, on a
+        device env, ``eval_batch`` when it is set (ga.py:325, 431)."""
+        cap = max(1, int(self.config.theta_hbm_budget) // (self.model.num_params * 4))
+        return min(self.env.batch_size if self.is_host_env else self.config.eval_batch or n, cap, n)
+
     def _eval_chunked(self, thetas: torch.Tensor, tslimit: int, episodes_per: int = 1):
         """``episodes_per`` episodes of each of ``thetas [N, D]``, in rounds
-        of the engine's slot count; repeats are gathered per round, never
+        of ``_chunk`` episodes; repeats are gathered per round, never
         materialized as ``[N·episodes, D]``. Returns returns and lengths
-        ``[N, episodes_per]`` and bc ``[N, episodes_per, ...]``."""
+        ``[N, episodes_per]`` and bc ``[N, episodes_per, ...]`` (numpy)."""
         N = thetas.shape[0]
         total = N * episodes_per
         idx_map = np.repeat(np.arange(N), episodes_per)
-        chunk = self.env.batch_size
-        rets, lens, bcs = [], [], []
+        chunk = self.env.batch_size if self.is_host_env else self._chunk(total)
+        outs = []
         for s in range(0, total, chunk):
             part = thetas.index_select(0, torch.as_tensor(idx_map[s : s + chunk], device=self.device))
-            r, l, bc = self._eval_host(part, tslimit)
-            rets.append(r)
-            lens.append(l)
-            bcs.append(bc)
-        bcs = np.concatenate(bcs)
-        return (np.concatenate(rets).reshape(N, episodes_per), np.concatenate(lens).reshape(N, episodes_per),
+            outs.append(self._eval(part, tslimit))
+        rets, lens, bcs = (_gather(x) for x in zip(*outs))
+        return (rets.reshape(N, episodes_per), lens.reshape(N, episodes_per),
                 bcs.reshape((N, episodes_per) + bcs.shape[1:]))
 
     def _fitness_pass(self, n: int, power: float, randomize: bool):
         """Make and evaluate ``n`` offspring, one episode each, in rounds of
-        ``min(slots, theta_hbm_budget // (4·D), n)`` (ga.py:419-465).
-        Returns numpy (pidx, midx, rewards, lengths, bcs), ``[n]`` each."""
-        dim = self.model.num_params
-        cap = max(1, int(self.config.theta_hbm_budget) // (dim * 4))
-        chunk = min(self.env.batch_size, cap, n)
+        ``_chunk(n)`` members (ga.py:419-481). Returns numpy (pidx, midx,
+        rewards, lengths, bcs), ``[n]`` each."""
+        chunk = self._chunk(n)
         n_parents = 0 if randomize else len(self.cached_parent_seeds)
         outs = []
         for _ in range(-(-n // chunk)):
@@ -251,9 +302,9 @@ class GATrainer:
             with record_function("ga.offspring"):
                 thetas = self._offspring_thetas(pidx, midx, power, randomize)
             with record_function("ga.rollout"):
-                outs.append((pidx, midx) + self._eval_host(thetas, self.cutoff.tslimit))
+                outs.append((pidx, midx) + tuple(self._eval(thetas, self.cutoff.tslimit)))
             del thetas
-        return tuple(np.concatenate(x)[:n] for x in zip(*outs))
+        return tuple(_gather(x)[:n] for x in zip(*outs))
 
     # ----------------------------------------------------------- generation
 
@@ -262,13 +313,17 @@ class GATrainer:
         st = self.state
         tstart_iter = time.time()
         power = float(self.mutation_power.value(iteration=st.it, frames=st.timesteps_so_far))
+        if cfg.genome_style == "cpu":  # bare-index chains mutate with one global stdev (es ga.py:262-263)
+            power = cfg.noise_stdev
         n = cfg.population_size
         randomize = not self.cached_parent_seeds
         pidx, midx, rewards, lengths, bcs = self._fitness_pass(n, power, randomize)
         if randomize:
             chains = [(int(midx[i]),) for i in range(n)]
-        else:
+        elif cfg.genome_style == "gpu":
             chains = [self.cached_parent_seeds[pidx[i]] + ((int(midx[i]), power),) for i in range(n)]
+        else:
+            chains = [self.cached_parent_seeds[pidx[i]] + (int(midx[i]),) for i in range(n)]
         return self._selection_and_ladder(chains, rewards, lengths, bcs, power, tstart_iter)
 
     def _selection_and_ladder(self, chains, rewards, lengths, bcs, power, tstart_iter) -> GAState:
@@ -389,8 +444,14 @@ class GATrainer:
         return self.state
 
     def close(self) -> None:
-        """Stop the env's engine threads."""
-        self.env.close()
+        """Stop the host engine's threads (a device env holds none)."""
+        if self.is_host_env:
+            self.env.close()
+
+
+def _gather(parts):
+    """Round results (numpy, or tensors on the device) → one numpy array."""
+    return torch.cat(parts).cpu().numpy() if torch.is_tensor(parts[0]) else np.concatenate(parts)
 
 
 class RSTrainer(GATrainer):

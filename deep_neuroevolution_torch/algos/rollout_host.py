@@ -2,10 +2,12 @@
 the population forward on the device.
 
 The counterpart of the JAX package's algos/rollout_host.py
-``rollout_host_batch`` and ``collect_ref_batch_host`` for gray frames. Each
-engine step of a slot group: gray frame pairs → 2-frame max and resize →
-4-stack → population forward → argmax → C++ step of the slots still
-running.
+``rollout_host_batch`` and ``collect_ref_batch_host``. Each engine step of a
+slot group: the engine's frames of the env's ``obs_mode`` → the device's
+part of the preprocessing (envs/preprocess.py ``preprocess_obs``: palette,
+2-frame max and resize for 'indexed', max and resize for 'gray', a scale
+for 'preproc') → 4-stack → population forward → argmax → C++ step of the
+slots still running.
 
 Host/device overlap: the slots are split into ``pipeline_groups``
 interleaved groups. PyTorch queues a group's device work and returns, so
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..envs.preprocess import preprocess_gray_frames, stack_reset, stack_step
+from ..envs.preprocess import preprocess_obs, stack_reset, stack_step
 
 
 class RolloutResult(NamedTuple):
@@ -59,6 +61,11 @@ class RolloutResult(NamedTuple):
 
 def _frames_to(frames: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(frames).to(device, non_blocking=True)
+
+
+def _obs(henv, frames: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The engine's frames → one observation ``[n, 84, 84, 1]`` on the device."""
+    return preprocess_obs(_frames_to(frames, device), henv.obs_mode, henv.warp_size, henv.warp_size)
 
 
 def _slice_params(params, sl: slice):
@@ -91,7 +98,7 @@ def rollout_host_batch(
     handful of members). ``collect_bc_traj`` returns each slot's RAM
     trajectory in ``bc_traj``. ``mirror_pairs`` > 0 is the round's pair
     count for mirrored draws (see the module docstring)."""
-    B, out_hw = henv.batch_size, henv.warp_size
+    B = henv.batch_size
     sub = None
     if n_slots is not None and n_slots < B:
         B = max(int(n_slots), 1)
@@ -119,9 +126,7 @@ def rollout_host_batch(
     sls = [slice(g * Bg, (g + 1) * Bg) for g in range(G)]
     gidx = [np.arange(g * Bg, (g + 1) * Bg, dtype=np.int32) for g in range(G)]
     params_g = [act_fn.prepare(_slice_params(params, s)) for s in sls]
-    stacks = [
-        stack_reset(preprocess_gray_frames(_frames_to(frames0[s], device), out_hw, out_hw)) for s in sls
-    ]
+    stacks = [stack_reset(_obs(henv, frames0[s], device)) for s in sls]
     actions_dev = [act_fn(params_g[g], stacks[g]) for g in range(G)]
 
     done = np.zeros(B, bool)
@@ -145,8 +150,7 @@ def rollout_host_batch(
                 frames_g = henv.observe(indices=gidx[g])
             # queued on the device; the next group's engine step overlaps it
             with record_function("rollout.queue_forward"):
-                obs = preprocess_gray_frames(_frames_to(frames_g, device), out_hw, out_hw)
-                stacks[g] = stack_step(stacks[g], obs)
+                stacks[g] = stack_step(stacks[g], _obs(henv, frames_g, device))
                 actions_dev[g] = act_fn(params_g[g], stacks[g])
             ret[alive_idx] += r_sub
             sret[alive_idx] += np.sign(r_sub)
@@ -169,16 +173,15 @@ def rollout_host_batch(
 def collect_ref_batch_host(henv, seed: int, device: torch.device, batch_size: int = 128) -> torch.Tensor:
     """Stacked observations ``[batch_size, 84, 84, 4]`` of a random policy,
     the VBN reference batch (gym_tensorflow/__init__.py:17-37)."""
-    B, out_hw = henv.batch_size, henv.warp_size
+    B = henv.batch_size
     rng = np.random.default_rng(seed)
     henv.reset(rng.integers(1, 31, size=B))
-    stack = stack_reset(preprocess_gray_frames(_frames_to(henv.observe(), device), out_hw, out_hw))
+    stack = stack_reset(_obs(henv, henv.observe(), device))
     collected, n = [], 0
     while n < batch_size:
         acts = rng.integers(0, henv.num_actions, size=B).astype(np.int32)
         _, d = henv.step(acts)
-        obs = preprocess_gray_frames(_frames_to(henv.observe(), device), out_hw, out_hw)
-        stack = stack_step(stack, obs)
+        stack = stack_step(stack, _obs(henv, henv.observe(), device))
         collected.append(stack)
         n += B
         if d.any():  # restart finished slots so frames keep flowing

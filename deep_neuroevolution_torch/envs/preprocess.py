@@ -1,15 +1,24 @@
-"""Atari frame preprocessing on the device, gray path.
+"""Atari frame preprocessing on the device.
 
 The counterpart of the JAX package's envs/preprocess.py:69-160, after the
 reference's TF graph (gym_tensorflow/atari/tf_atari.py:81-94):
 
-1. NTSC palette → luminance. The engine applies it (``GRAY_PALETTE_UINT8``,
-   installed with ``HostBatchEnv.set_gray_lut``) and ships gray uint8.
+1. NTSC palette → luminance.
 2. Max over the previous and current frame (flicker removal).
 3. Bilinear resize to 84×84 with align corners, as ``R · img · C`` with two
    constant interpolation matrices.
 4. 4-frame stack: reset zero-fills the history and appends the first
    frame; each step shifts left and appends (wrappers/stack_frames.py).
+
+The host engine's ``obs_mode`` (envs/atari.py) says where steps 1-3 run
+(``preprocess_obs``): 'indexed' ships indexed-color frame pairs and the
+device does all three with the float32 palette (``preprocess_frames``, the
+reference's own path); 'gray' has the engine apply the palette as a uint8
+LUT (``GRAY_PALETTE_UINT8``, installed with ``HostBatchEnv.set_gray_lut``)
+and the device do 2-3 (``preprocess_gray_frames``); 'preproc' has the
+engine do 1-3 and round to uint8, and the device only scales
+(``scale_preproc_frames``). Each uint8 rounding moves a pixel by at most
+0.5/255.
 
 The palette constants are Atari 2600 NTSC hardware data (tf_atari.py:107-141).
 """
@@ -95,15 +104,49 @@ def _resize_matrices(h: int, w: int, out_h: int, out_w: int, device: torch.devic
     return R, C
 
 
+def _resize(gray: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``[B, H, W]`` float32 → ``[B, out_h, out_w, 1]``, align corners."""
+    R, C = _resize_matrices(gray.shape[1], gray.shape[2], out_h, out_w, gray.device)
+    return torch.matmul(torch.matmul(R, gray), C)[..., None]
+
+
+@functools.lru_cache(maxsize=None)
+def _gray_palette(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(GRAYSCALE_PALETTE).to(device)
+
+
+def preprocess_frames(frames: torch.Tensor, out_h: int = 84, out_w: int = 84) -> torch.Tensor:
+    """``[B, 2, H, W]`` uint8 indexed-color frames → ``[B, out_h, out_w, 1]``
+    float32 in [0, 1]: the float32 palette's luminance, 2-frame max,
+    align-corners resize (tf_atari.py:90-94)."""
+    gray = _gray_palette(frames.device)[frames.long()]
+    return _resize(gray.max(dim=1).values, out_h, out_w)
+
+
 def preprocess_gray_frames(frames: torch.Tensor, out_h: int = 84, out_w: int = 84) -> torch.Tensor:
     """``[B, 2, H, W]`` uint8 gray frames → ``[B, out_h, out_w, 1]`` float32
     in [0, 1]: 2-frame max, scale, align-corners resize. The max is taken on
     the uint8 values, which gives the same result as taking it after the
     scale."""
-    _, _, H, W = frames.shape
-    gray = frames.max(dim=1).values.to(torch.float32) * (1.0 / 255.0)
-    R, C = _resize_matrices(H, W, out_h, out_w, frames.device)
-    return torch.matmul(torch.matmul(R, gray), C)[..., None]
+    return _resize(frames.max(dim=1).values.to(torch.float32) * (1.0 / 255.0), out_h, out_w)
+
+
+def scale_preproc_frames(frames: torch.Tensor) -> torch.Tensor:
+    """``[B, h, w]`` uint8 frames the engine preprocessed
+    (``observe_preproc``) → ``[B, h, w, 1]`` float32 in [0, 1]."""
+    return frames.to(torch.float32)[..., None] * (1.0 / 255.0)
+
+
+def preprocess_obs(frames: torch.Tensor, mode: str, out_h: int = 84, out_w: int = 84) -> torch.Tensor:
+    """The device's part for an engine ``obs_mode`` (see the module
+    docstring): one observation ``[B, out_h, out_w, 1]`` float32."""
+    if mode == "preproc":
+        return scale_preproc_frames(frames)
+    if mode == "gray":
+        return preprocess_gray_frames(frames, out_h, out_w)
+    if mode == "indexed":
+        return preprocess_frames(frames, out_h, out_w)
+    raise ValueError(f"unknown obs_mode {mode!r} (gray|indexed|preproc)")
 
 
 def stack_reset(frame: torch.Tensor, num_stack: int = 4) -> torch.Tensor:

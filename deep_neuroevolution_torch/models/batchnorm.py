@@ -32,8 +32,9 @@ output to the compute dtype (the reference-batch pass), the port rounds it
 too. The fused routes take bfloat16 weights whatever ``compute_dtype``
 says, as in the JAX package.
 
-Not ported yet: other nonlinearities, input sizes other than 84×84×4,
-``prepare_batch_params_chunked`` and BNDQN.
+``nonlin_type`` takes only 'relu'. Not ported yet: other nonlinearities,
+input sizes other than 84×84×4, ``prepare_batch_params_chunked`` and
+BNDQN.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ import torch.nn.functional as F
 
 from ..ops import fused_dqn as fk
 from ..ops.flat import ParamSpec
-from .core import Model, batch_conv2d, extract_patches, pop_matvec
+from .core import Model, batch_conv2d, check_relu, extract_patches, pop_matvec
 
 VBN_EPS = 1e-3  # batchnorm.py:76; policies.py:322 epsilon=1e-3
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -74,6 +75,7 @@ class VirtualBNDQN(Model):
     affine: str = "bias"  # 'bias' (GPU ModelVirtualBN) | 'full' (CPU ESAtariPolicy γ/β)
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
     forward_impl: str = "auto"  # see the module docstring
+    nonlin_type: str = "relu"  # the only one ported (ROADMAP Queue 1 item 6)
 
     IN_HW: ClassVar[int] = 84  # input frames [84, 84, 4]
     IN_CH: ClassVar[int] = 4
@@ -93,6 +95,7 @@ class VirtualBNDQN(Model):
             raise ValueError(f"forward_impl must be one of {_FORWARD_IMPLS}, not {self.forward_impl!r}")
         if self._use_fused() and not 0 < self.num_actions <= fk.NOUT:
             raise ValueError(f"forward_impl={self.forward_impl!r} takes 1 to {fk.NOUT} actions, not {self.num_actions}")
+        check_relu(self)
         super().__post_init__()
 
     @property

@@ -85,6 +85,15 @@ NONLINS = {
 }
 
 
+def check_relu(model) -> None:
+    """The DQN family's ``nonlin_type``: the fused kernels and the port's
+    forwards are written for relu, the only value ported."""
+    if model.nonlin_type != "relu":
+        raise NotImplementedError(
+            f"{type(model).__name__}: nonlin_type={model.nonlin_type!r} is not ported; the port's DQNs take "
+            "'relu' only (ROADMAP Queue 1 item 6)")
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     """Base for all policies. Subclasses define ``build_specs`` and
@@ -107,6 +116,12 @@ class Model:
     def init_theta(self, gen: torch.Generator, device: Optional[torch.device] = None) -> torch.Tensor:
         """Fresh flat θ with each layer's initializer."""
         return flat.init_theta(gen, self.specs, device)
+
+    def reinit_theta(self, theta: torch.Tensor) -> torch.Tensor:
+        """The CPU stack's GA re-init of a raw noise slice (``[D]`` or
+        ``[B, D]``): weight columns rescaled to L2 norm ``std``, biases
+        zeroed (tf_util.py:122-130)."""
+        return flat.reinit_theta(theta, self.specs)
 
     def scale_by(self, style: str = "fan_in", device: Optional[torch.device] = None) -> torch.Tensor:
         """``[D]`` per-element genome init scale (base.py:166-175)."""

@@ -7,9 +7,9 @@ gpu neuroevolution/models/dqn.py:30-47, and their Xavier-scaled variants
 
     conv1 k8 s4 → conv2 k4 s2 [→ conv3 k3 s1 (large)] → flatten → fc → out
 
-on 84×84×4 frames. The JAX package's other input sizes, nonlinearities and
-out-layer scales (``in_hw``, ``nonlin_type``, ``out_std``) are not ported:
-they are class constants here.
+on 84×84×4 frames. ``nonlin_type`` is a field, as in the JAX package, but
+takes only 'relu'; its other input sizes and out-layer scales (``in_hw``,
+``out_std``) are not ported: they are class constants here.
 
 θ has the JAX package's flat layout (``build_specs`` order), so a θ moves
 between the packages unchanged (weights.from_jax). The action is the argmax
@@ -42,7 +42,7 @@ import torch.nn.functional as F
 
 from ..ops import fused_dqn as fk
 from ..ops.flat import ParamSpec
-from .core import Model, batch_conv2d, extract_patches, pop_matvec
+from .core import Model, batch_conv2d, check_relu, extract_patches, pop_matvec
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -59,6 +59,7 @@ class SmallDQN(Model):
     scale_style: str = "fan_in"  # genome scaling: dqn.py:26-28
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
     conv_impl: str = "auto"  # 'auto' | 'fused' (K5) | 'einsum'
+    nonlin_type: str = "relu"  # the only one ported (ROADMAP Queue 1 item 6)
 
     IN_HW: ClassVar[int] = 84  # input frames [84, 84, 4]
     IN_CH: ClassVar[int] = 4
@@ -71,6 +72,7 @@ class SmallDQN(Model):
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
         if self.conv_impl not in ("auto", "fused", "einsum"):
             raise ValueError(f"conv_impl must be 'auto', 'fused' or 'einsum', not {self.conv_impl!r}")
+        check_relu(self)
         super().__post_init__()
 
     @property

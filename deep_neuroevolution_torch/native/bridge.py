@@ -3,8 +3,11 @@
 ``HostBatchEnv`` is the batched, index-addressable env interface of the
 reference's TF env ops (gym_tensorflow/tf_env.py:27-80): reset(indices,
 noops, max_frames, seeds), step(actions, indices) → (reward, done),
-observe(indices), final_state(indices), with EpisodicLife episodes on
-request. NumPy staging buffers are reused across calls.
+final_state(indices), with EpisodicLife episodes on request, and three
+observations: ``observe`` (indexed-color frame pairs), ``observe_gray``
+(frame pairs through the engine's gray LUT) and ``observe_preproc`` (the
+LUT, the 2-frame max and the align-corners resize in the engine, one uint8
+frame a slot). NumPy staging buffers are reused across calls.
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ def _load() -> ctypes.CDLL:
     lib.nevo_reset_seeded.argtypes = [ctypes.c_void_p, iptr, iptr, iptr, iptr, ctypes.c_int]
     lib.nevo_step.restype = None
     lib.nevo_step.argtypes = [ctypes.c_void_p, iptr, iptr, ctypes.c_int, fptr, u8ptr]
+    lib.nevo_observe.restype = None
+    lib.nevo_observe.argtypes = [ctypes.c_void_p, iptr, ctypes.c_int, u8ptr]
+    lib.nevo_observe_preproc.restype = None
+    lib.nevo_observe_preproc.argtypes = [ctypes.c_void_p, iptr, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8ptr]
     lib.nevo_set_gray_lut.restype = None
     lib.nevo_set_gray_lut.argtypes = [ctypes.c_void_p, u8ptr]
     lib.nevo_observe_gray.restype = None
@@ -110,8 +117,17 @@ class HostBatchEnv:
         self._lib.nevo_step(self._h, idx, acts, n, self._rew[:n], self._done[:n])
         return self._rew[:n].copy(), self._done[:n].astype(bool)
 
+    def observe(self, indices=None) -> np.ndarray:
+        """Indexed-color frames ``[n, frames, H, W]`` uint8 (tf_atari.cpp:
+        57-62), a copy: the staging buffer is reused by the next call."""
+        idx = self._idx(indices)
+        n = idx.size
+        self._lib.nevo_observe(self._h, idx, n, self._obs[:n].reshape(-1))
+        return self._obs[:n].copy()
+
     def set_gray_lut(self, lut256: np.ndarray) -> None:
-        """Install the indexed-color → luminance LUT used by observe_gray."""
+        """Install the indexed-color → luminance LUT used by observe_gray
+        and observe_preproc."""
         lut = np.ascontiguousarray(lut256, np.uint8)
         if lut.shape != (256,):
             raise ValueError("the gray LUT has 256 entries")
@@ -124,6 +140,17 @@ class HostBatchEnv:
         n = idx.size
         self._lib.nevo_observe_gray(self._h, idx, n, self._obs[:n].reshape(-1))
         return self._obs[:n].copy()
+
+    def observe_preproc(self, out_h: int = 84, out_w: int = 84, indices=None) -> np.ndarray:
+        """Frames preprocessed in the engine, ``[n, out_h, out_w]`` uint8:
+        the gray LUT (set_gray_lut first), the 2-frame max and the
+        align-corners bilinear resize, rounded to uint8 at the end. A copy."""
+        idx = self._idx(indices)
+        n = idx.size
+        if getattr(self, "_pre", None) is None or self._pre.shape[1:] != (out_h, out_w):
+            self._pre = np.zeros((self.batch_size, out_h, out_w), np.uint8)
+        self._lib.nevo_observe_preproc(self._h, idx, n, out_h, out_w, self._pre[:n].reshape(-1))
+        return self._pre[:n].copy()
 
     def final_state(self, indices=None) -> np.ndarray:
         """Each slot's final state ``[n, final_state_size]`` f32: the RAM

@@ -11,7 +11,8 @@ Population use: ``unflatten`` also takes a stacked ``[B, D]`` θ and returns
 ``scale_by_vector`` is the GPU stack's genome init scale (θ₀ = ε·scale_by;
 the JAX package's flat.py:141-168), bit-exact with the JAX package's.
 ``partial_load`` is the warm start's surgery (flat.py:149 of the JAX
-package). Not ported yet: ``reinit_theta`` (CPU-style genomes).
+package). ``reinit_theta`` is the CPU stack's genome re-init (CPU-style
+chains, flat.py:103-117 of the JAX package).
 """
 
 from __future__ import annotations
@@ -88,6 +89,24 @@ def init_theta(
         else:
             raise ValueError(f"unknown init {s.init!r}")
     return torch.cat(chunks).to(device or "cpu")
+
+
+def reinit_theta(theta: torch.Tensor, specs: Sequence[ParamSpec]) -> torch.Tensor:
+    """The CPU stack's GA ``reinitialize`` (tf_util.py:122-130,
+    es_distributed/ga.py:256-260) of ``[..., D]`` raw values: each weight
+    tensor's columns of the existing values rescaled to L2 norm ``std``,
+    biases zeroed. A new tensor; float32 sums, so it equals the JAX
+    package's within float32 reordering."""
+    lead = tuple(theta.shape[:-1])
+    chunks = []
+    for s, x in zip(specs, unflatten(theta, specs).values()):
+        if s.init == "normc":
+            cols = x.reshape(lead + (-1, s.shape[-1]))
+            cols = cols * (s.std / torch.sqrt(torch.sum(cols * cols, dim=-2, keepdim=True)))
+            chunks.append(cols.reshape(lead + (-1,)))
+        else:
+            chunks.append(torch.zeros(lead + (s.size,), dtype=theta.dtype, device=theta.device))
+    return torch.cat(chunks, dim=-1)
 
 
 def default_scale_by(spec: ParamSpec, style: str = "fan_in") -> float:

@@ -1,8 +1,8 @@
-"""Seed-chain genomes of the GPU stack: GA individuals as noise indices.
+"""Seed-chain genomes: GA individuals as noise indices.
 
-The counterpart of the JAX package's ops/genome.py for GPU-style chains
-(gpu neuroevolution/models/base.py:127-156): the first entry is the init
-index, each later entry an (index, power) mutation, and
+The counterpart of the JAX package's ops/genome.py. GPU-style chains (gpu
+neuroevolution/models/base.py:127-156): the first entry is the init index,
+each later entry an (index, power) mutation, and
 
     θ₀ = ε(idx₀)·scale_by,   θ ← θ + powerₖ·ε(idxₖ),
 
@@ -10,15 +10,21 @@ with ε(i) = table[i : i + D]. A population of chains is one ``[P, L]``
 index array and one ``[P, L]`` power array, padded with (0, 0) entries,
 which add 0·ε = 0.
 
+CPU-style chains (es_distributed/ga.py:250-264) are bare indices:
+θ₀ = reinit(ε(idx₀)), the model's normalized-column re-init
+(``Model.reinit_theta``), then θ ← θ + σ·ε(idxₖ) with one global σ
+(``noise_stdev``): ``reconstruct_cpu_style``.
+
 Each mutation step θ + power·ε is one fused multiply-add, rounded to f32
 once, because XLA fuses the JAX package's step into an FMA (its θ differs
 from a separately rounded product and sum by an ulp on ~5% of entries).
 ``mutate_`` computes it in float64, where power·ε is exact, and rounds the
 sum to f32: that is the FMA's result except where the float64 sum falls on
 a float32 rounding tie (about one entry in 2^29). So a θ is the JAX
-package's bit for bit, on the CPU and on the card alike.
-
-Not ported yet: CPU-style chains (``reinit_theta`` and a global stdev).
+package's bit for bit, on the CPU and on the card alike. The JAX package
+rebuilds a whole CPU-style chain eagerly, with no fusion: the product σ·ε
+and the sum are rounded to f32 one after the other, and
+``reconstruct_cpu_style`` rounds them so too.
 """
 
 from __future__ import annotations
@@ -82,6 +88,21 @@ def extend(theta_parent: torch.Tensor, table: torch.Tensor, idx: int, power: flo
     """One mutation from a cached parent θ (base.py:148-156)."""
     eps = noise_rows(table, torch.tensor([int(idx)]), dim)[0]
     return mutate_(theta_parent.clone(), power, eps)
+
+
+def reconstruct_cpu_style(
+    table: torch.Tensor, chain: Sequence[int], dim: int, reinit, noise_stdev: float
+) -> torch.Tensor:
+    """θ ``[D]`` of a CPU-style chain ``(idx₀, idx, ...)``: ``reinit`` (the
+    model's ``reinit_theta``) of ε(idx₀), then θ + σ·ε(idx) for each later
+    index, σ·ε and the sum each rounded to f32 (the JAX package's
+    algos/ga.py:309-311 and utils/checkpoint.py:93-95)."""
+    row = lambda i: noise_rows(table, torch.tensor([int(i)]), dim)[0]  # noqa: E731
+    sigma = float(np.float32(noise_stdev))
+    theta = reinit(row(chain[0]))
+    for idx in chain[1:]:
+        theta = theta + row(idx) * sigma
+    return theta
 
 
 def pad_chains(chains: Sequence[Sequence], max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:

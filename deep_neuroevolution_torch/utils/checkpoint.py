@@ -14,10 +14,10 @@ JAX package's dict of plain values:
 * ``model_class`` and ``model_kwargs``: the class name and its constructor
   arguments under the JAX package's field names. The port fixes some of
   those fields as class constants (the DQNs' ``in_hw``, ``in_ch``,
-  ``nonlin_type``, ``out_std``, ``LAYERS``, ``FC``, the VBN-DQN's
-  ``scale_style``); it writes their values, and reads a file only where
-  they equal its constants. It ignores the JAX package's TPU-only knobs
-  (``matvec_impl``, ``fused_interpret``);
+  ``out_std``, ``LAYERS``, ``FC``, the VBN-DQN's ``scale_style``) and
+  takes only relu as the DQNs' ``nonlin_type``; it writes their values,
+  and reads a file only where they equal its own. It ignores the JAX
+  package's TPU-only knobs (``matvec_impl``, ``fused_interpret``);
 * ``ob_stat``: a plain ``(sum, sumsq, count)`` tuple of numpy arrays;
 * ``ref_batch`` (numpy) and ``extra`` (a dict).
 
@@ -63,7 +63,7 @@ FORMAT = "deep_neuroevolution_torch.trainer/1"  # the port's trainer snapshots
 # (ROADMAP Queue 1 item 6): field → the port class's attribute
 _CONSTANT_ATTRS = {"in_hw": "IN_HW", "in_ch": "IN_CH", "out_std": "OUT_STD", "LAYERS": "LAYERS", "FC": "FC"}
 # fixed values of JAX fields that a port class lacks
-_CONSTANT_VALUES = {"nonlin_type": "relu", "scale_style": "fan_in"}
+_CONSTANT_VALUES = {"scale_style": "fan_in"}
 # the JAX package's TPU-only knobs, written with their defaults, ignored on reading
 _TPU_ONLY = {"matvec_impl": "auto", "fused_interpret": False}
 _JAX_NAMES = ("deep_neuroevolution_tpu", "jax", "jaxlib")
@@ -216,21 +216,21 @@ def load_policy_snapshot(path: str, device=None):
 
 
 def theta_from_seed_chain(model, noise_table, seeds, genome_style: str = "gpu", noise_stdev: float = 0.002):
-    """Flat θ of a GPU-style seed chain ``[init_idx, (idx, power), ...]``
-    (base.py:139-145), on the table's device, bit for bit the JAX
-    package's. A bare index after the first adds nothing (power 0), as in
-    the JAX package's ``theta_from_seed_chain``. ``noise_stdev`` is the
-    CPU-style chains' global power."""
-    if genome_style == "cpu":
-        raise NotImplementedError(
-            "CPU-style seed chains (reinit_theta and a global noise_stdev) wait for the GA's CPU-style genomes "
-            "(ROADMAP Queue 1 item 5)")
-    if genome_style != "gpu":
+    """Flat θ of a seed chain, on the table's device (SURVEY §3.4):
+    GPU-style ``[init_idx, (idx, power), ...]`` (base.py:139-145), bit for
+    bit the JAX package's, a bare index after the first adding nothing
+    (power 0) as there; or CPU-style bare indices
+    (es_distributed/ga.py:250-264): ``reinit_theta`` of the first row, then
+    ``noise_stdev``·ε of each later one, rounded as the JAX package's eager
+    loop rounds it (ops/genome.py ``reconstruct_cpu_style``)."""
+    if genome_style not in ("gpu", "cpu"):
         raise ValueError(f"unknown genome_style {genome_style!r} (gpu|cpu)")
     dim = model.num_params
     if noise_table.size <= dim:
         raise ValueError(f"noise table ({noise_table.size}) must exceed num_params ({dim})")
     table = noise_table.noise
+    if genome_style == "cpu":
+        return genome.reconstruct_cpu_style(table, seeds, dim, model.reinit_theta, noise_stdev)
     idxs = torch.tensor([int(s[0]) if isinstance(s, (tuple, list)) else int(s) for s in seeds], dtype=torch.int64)
     powers = torch.tensor([float(s[1]) if isinstance(s, (tuple, list)) else 0.0 for s in seeds], dtype=torch.float32)
     scale_by = model.scale_by(getattr(model, "scale_style", "fan_in"), table.device)

@@ -1,5 +1,5 @@
 """Experiment configuration: the GPU-stack schema, and the CPU-stack schema's
-ES and NS-ES branches.
+ES, GA, RS and NS-ES branches.
 
 The counterpart of the JAX package's utils/config.py. Two schemas:
 
@@ -13,7 +13,12 @@ The counterpart of the JAX package's utils/config.py. Two schemas:
   on a GA file.
 * CPU stack (es_distributed): {"config": {...}, "env_id", "policy":
   {"type", "args"}, "optimizer", "population_size"} (config.py:264-313 of
-  the JAX package). ES runs in quota mode when ``episodes_per_batch`` or
+  the JAX package). ``algo`` "ga" or "rs" runs the GA or random search on
+  CPU-style genomes (:314-329): bare-index chains mutated with the file's
+  ``noise_stdev``, the file's ``population_size`` (1000),
+  ``selection_threshold`` (20) and ``num_elites`` (1), no validation or
+  test episodes unless the file asks for them (``frostbite_ga.json``).
+  ES runs in quota mode when ``episodes_per_batch`` or
   ``timesteps_per_batch`` is set (``frostbite_es.json``). ``eval_prob``
   sets the eval-episode count as there: ``eval_prob · episodes_per_batch``
   (the file's, at least 1) when both are set, else 8. A file with
@@ -55,16 +60,18 @@ read it (so it is never dropped without a word).
   ``batch_size`` (slots), ``num_threads``, ``pipeline_groups``;
 * ``noise_size`` — noise-table length (default 250M, the reference's);
 * ``theta_hbm_budget`` — bytes allowed for one round's θ batch;
+* ``eval_batch`` — ES: pairs a round; GA and RS: members a round on a
+  device env (the engine's slots bound a host-engine round);
 * ES only: ``num_eval_episodes`` (noiseless episodes of θ per
-  generation), ``eval_batch`` (pairs a round), ``grad_chunk`` (pairs the
-  gradient's plain version gathers at a time), ``mirror_crn``; CPU-stack
-  ES only: ``episodes_per_batch`` and ``timesteps_per_batch`` (the quotas);
+  generation), ``grad_chunk`` (pairs the gradient's plain version gathers
+  at a time), ``mirror_crn``; CPU-stack ES only: ``episodes_per_batch``
+  and ``timesteps_per_batch`` (the quotas);
 * ``bc_mode`` — NS-ES only: 'final' or 'traj'.
 
-Not ported yet, and rejected with ``NotImplementedError``: in the CPU-stack
-schema, any ``algo`` but es and nses (so ``frostbite_ga.json``, the GA's
-CPU-style genomes), MuJoCo env ids (so ``humanoid*.json``); NS-ES on a
-GPU-stack file; the GA's ``eval_batch`` override (its device arm's chunk).
+Not ported yet, and rejected with ``NotImplementedError``: MuJoCo env ids
+(so ``humanoid*.json``); NS-ES on a GPU-stack file; a DQN policy's
+``nonlin_type`` other than relu and an ``ac_init_std`` other than the
+model's out-layer std (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -89,7 +96,7 @@ _OVERRIDES = {
     "num_eval_episodes", "bc_mode", "eval_batch", "grad_chunk", "mirror_crn", "episodes_per_batch",
     "timesteps_per_batch",
 }
-_ES_OVERRIDES = ("num_eval_episodes", "eval_batch", "grad_chunk", "mirror_crn")
+_ES_OVERRIDES = ("num_eval_episodes", "grad_chunk", "mirror_crn")
 _QUOTA_OVERRIDES = ("episodes_per_batch", "timesteps_per_batch")
 # experiment keys the JAX package acts on, and the (schema, algo) runs that
 # read them (its utils/config.py:222, 233-245, 260-261, 292)
@@ -141,6 +148,12 @@ def build_model(policy_type: str, args: Dict[str, Any], env) -> models.Model:
         )
     num_actions = space.n if isinstance(space, Discrete) else env.num_actions
     kwargs = {k: args[k] for k in ("nonlin_type",) if k in args}
+    # GAAtariPolicy's ac_init_std is the JAX package's out_std (its config.py:
+    # 115-116), a class constant here
+    if "ac_init_std" in args and float(args["ac_init_std"]) != getattr(cls, "OUT_STD", None):
+        raise NotImplementedError(
+            f"{policy_type}: ac_init_std={args['ac_init_std']!r} is not ported; the port fixes the out layer's std "
+            f"of {cls.__name__} at {getattr(cls, 'OUT_STD', 'its normc default')} (ROADMAP Queue 1 item 6)")
     if "obs_dim" in getattr(cls, "__dataclass_fields__", {}):
         return cls(obs_dim=int(np.prod(env.obs_shape)), num_actions=num_actions, **kwargs)
     return cls(num_actions=num_actions, **kwargs)
@@ -186,12 +199,11 @@ def load_experiment(
                                   f"({algo}): the JAX package reads it only in a CPU-stack ES experiment")
     if algo == "nses" and not cpu_schema:
         raise NotImplementedError("algo 'nses': NS-ES runs CPU-stack files (with 'novelty_search'), not GPU-stack ones")
-    ported = ("es", "nses") if cpu_schema else ("es", "ga", "rs")
+    ported = ("es", "ga", "rs", "nses") if cpu_schema else ("es", "ga", "rs")
     if algo not in ported:
         raise NotImplementedError(f"algo {algo!r} is not ported yet for this schema; ported: {', '.join(ported)}")
-    if algo in ("ga", "rs") and "eval_batch" in overrides:
-        raise ValueError("unsupported overrides ['eval_batch'] for the GA and RS: their device arm's chunk is "
-                         "not ported yet (ROADMAP Queue 1 item 7)")
+    if "eval_batch" in overrides and algo == "nses":
+        raise ValueError("the 'eval_batch' override applies to ES, GA and RS only")
     for key in _ES_OVERRIDES:
         if key in overrides and algo != "es":
             raise ValueError(f"the {key!r} override applies to ES only")
@@ -202,6 +214,7 @@ def load_experiment(
         raise ValueError("the 'bc_mode' override applies to NS-ES only")
     device = resolve_device(device)
     budget = {k: overrides[k] for k in ("theta_hbm_budget",) if k in overrides}
+    ga_knobs = {**budget, **{k: int(overrides[k]) for k in ("eval_batch",) if k in overrides}}
     if "noise_size" in overrides:
         noise_table = NoiseTable.from_seed(count=int(overrides["noise_size"]), device=device)
 
@@ -215,6 +228,23 @@ def load_experiment(
         model = build_model(model_name, model_args, env)
         if algo == "nses":
             return _nses_trainer(env, model, exp, overrides, budget, noise_table, seed, device)
+        if cpu_schema and algo in ("ga", "rs"):
+            c = exp["config"]
+            cfg = GAConfig(  # the JAX package's config.py:314-329
+                population_size=int(overrides.get("population_size", exp.get("population_size", 1000))),
+                num_elites=int(exp.get("num_elites", 1)),
+                selection_threshold=int(exp.get("selection_threshold", 20)),
+                mutation_power=c.get("noise_stdev", 0.002),
+                noise_stdev=c.get("noise_stdev", 0.002),
+                genome_style="cpu",
+                episode_cutoff_mode=overrides.get("episode_cutoff_mode", c.get("episode_cutoff_mode", "env_default")),
+                validation_threshold=int(exp.get("validation_threshold", 0)),
+                num_validation_episodes=int(exp.get("num_validation_episodes", 0)),
+                num_test_episodes=int(exp.get("num_test_episodes", 0)),
+                **ga_knobs,
+            )
+            ctor = RSTrainer if algo == "rs" else GATrainer
+            return ctor(env, model, cfg, noise_table=noise_table, seed=seed, device=device)
         if cpu_schema:
             c = exp["config"]
             cfg = ESConfig(
@@ -263,7 +293,7 @@ def load_experiment(
             mutation_power=exp.get("mutation_power", 0.002),
             episode_cutoff_mode=exp.get("episode_cutoff_mode", "env_default"),
             timesteps=float(exp.get("timesteps", 1e9)),
-            **budget,
+            **ga_knobs,
         )
         ctor = RSTrainer if algo == "rs" else GATrainer
         tr = ctor(env, model, cfg, noise_table=noise_table, seed=seed, device=device)

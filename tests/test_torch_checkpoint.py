@@ -241,7 +241,10 @@ def test_no_resume_starts_afresh(tmp_path, quiet_loggers):
 
 def test_load_from_matches_jax(tmp_path):
     """The GA-seeded ES: θ₀ of a seed chain, bit for bit the JAX package's
-    ``theta_from_seed_chain``; the path is formatted with the experiment."""
+    ``theta_from_seed_chain``; the path is formatted with the experiment.
+    A CPU-style chain (bare indices) through ``theta_from_seed_chain(...,
+    'cpu')``: the re-init of its first row is a float32 column sum in
+    another order, so within 1e-6·max|θ| (tests/test_torch_ga_cpu.py)."""
     chain = [123, (4567, 0.002), 89, (10, 0.5)]
     (tmp_path / "toy.pkl").write_bytes(pickle.dumps(chain))
     exp = {**json.loads((ROOT / "configurations" / "es_toy_config.json").read_text()),
@@ -251,8 +254,13 @@ def test_load_from_matches_jax(tmp_path):
     jm = jbn.VirtualBNDQN(num_actions=tr.model.num_actions)
     jtheta = np.asarray(jckpt.theta_from_seed_chain(jm, JaxNoise.from_seed(count=3_000_000), chain))
     assert np.array_equal(tr.theta.numpy(), jtheta)
-    with pytest.raises(NotImplementedError, match="CPU-style"):
-        tckpt.theta_from_seed_chain(tr.model, tr.noise, chain, genome_style="cpu")
+    cpu_chain = [123, 4567, 89, 10]
+    jcpu = np.asarray(jckpt.theta_from_seed_chain(jm, JaxNoise.from_seed(count=3_000_000), cpu_chain,
+                                                  genome_style="cpu", noise_stdev=0.005))
+    tcpu = tckpt.theta_from_seed_chain(tr.model, tr.noise, cpu_chain, genome_style="cpu", noise_stdev=0.005)
+    np.testing.assert_allclose(tcpu.numpy(), jcpu, rtol=0, atol=1e-6 * np.abs(jcpu).max())
+    with pytest.raises(ValueError, match="genome_style"):
+        tckpt.theta_from_seed_chain(tr.model, tr.noise, chain, genome_style="mixed")
 
 
 def test_init_from_a_jax_policy_file(tmp_path):

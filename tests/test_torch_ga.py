@@ -44,6 +44,17 @@ def _jax_seed(key) -> int:
     return int(jax.random.randint(key, (), 0, 2**31 - 1))
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread, as in tests/test_torch_checkpoint.py: under
+    several test workers, CPU forwards lose most of their time to threads
+    waiting on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tables():
     return (jnoise.NoiseTable.from_seed(count=COUNT),

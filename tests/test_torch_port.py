@@ -158,8 +158,10 @@ def test_config_rejects_what_is_not_ported(tmp_path):
         config.load_experiment(exp, device="cpu")  # frostbite needs ALE
     with pytest.raises(ValueError, match="unsupported overrides"):
         config.load_experiment(exp, overrides={"noise": "virtual"}, device="cpu")
-    with pytest.raises(ValueError, match="unsupported overrides"):  # the GA device arm's chunk
-        config.load_experiment(exp, overrides={"game": "toy", "eval_batch": 64}, device="cpu", algo="ga")
+    tr = config.load_experiment(exp, device="cpu", algo="ga", overrides={  # the GA's round size now acts
+        "game": "toy", "eval_batch": 64, "noise_size": 3_000_000, "env_kwargs": {"batch_size": 4}})
+    tr.close()
+    assert tr.config.eval_batch == 64
     with pytest.raises(NotImplementedError, match="nses"):
         config.load_experiment(exp, overrides={"game": "toy"}, device="cpu", algo="nses")
 

@@ -29,6 +29,7 @@ from deep_neuroevolution_torch import envs as tenvs
 from deep_neuroevolution_torch import main as cli
 from deep_neuroevolution_torch import models as tmodels
 from deep_neuroevolution_torch.algos import es as tes
+from deep_neuroevolution_torch.algos import ga as tga
 from deep_neuroevolution_torch.algos import rollout as trollout
 from deep_neuroevolution_torch.ops import fitness as tfit
 from deep_neuroevolution_torch.ops import optim as topt
@@ -328,14 +329,16 @@ def test_both_configurations_load_on_the_cpu():
 def test_config_rejects_what_is_not_ported(tmp_path):
     maze = _exp("maze_es.json")
     for exp, match in (
-        ({**maze, "algo": "ga"}, "algo 'ga'"),
         (_exp("humanoid.json"), "MuJoCo"),
         ({**maze, "env_id": "Humanoid-v1"}, "MuJoCo"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             tconfig.load_experiment(exp, overrides={"noise_size": 3_000_000}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ported yet"):  # the GA device arm
-        tconfig.load_experiment(_exp("es_gym_config.json"), overrides=SMALL, device="cpu", algo="ga")
+    # the GA's device arm and its CPU-style genomes now load
+    tr = tconfig.load_experiment({**maze, "algo": "ga"}, overrides={"noise_size": 3_000_000}, device="cpu")
+    assert isinstance(tr, tga.GATrainer) and tr.config.genome_style == "cpu" and not tr.is_host_env
+    tr = tconfig.load_experiment(_exp("es_gym_config.json"), overrides=SMALL, device="cpu", algo="ga")
+    assert isinstance(tr, tga.GATrainer) and tr.config.genome_style == "gpu"
     # quota mode, mirror_crn and the policy's init_from now act
     for quota in ("episodes_per_batch", "timesteps_per_batch"):
         tr = tconfig.load_experiment({**maze, "config": {**maze["config"], quota: 100}},
