@@ -135,7 +135,33 @@ ends:
    indexed, preproc, preproc, indexed, gray): seconds, frames/s and bytes
    uploaded a slot-step (every frame upload counted); K1 and K2 must
    launch in each; the card's preprocessing of each mode's engine frames
-   against the CPU's ('preproc' bit for bit, the others within 1e-6).
+   against the CPU's ('preproc' bit for bit, the others within 1e-6);
+23. the threefry noise sources: VirtualNoise rows on the card against the
+   CPU's (the words equal, the normals within 1e-6); the 250M-float
+   ``noise: device`` table built on the card (its seconds beside phase
+   13's host build); the VirtualNoise gradient at 256 and 2560 pairs ×
+   1,004,852 (8 pairs against the CPU within 1e-5·max|g|); phase 4's cut
+   on ``noise: virtual`` (K1 launches, K2 none) and on ``noise: device``
+   (K2 once a generation, the first generation's call against its plain
+   version on the same table, offsets and weights), two generations each;
+   maze_es.json as a GA on
+   ``noise: virtual``: every cached θ against its whole chain within 1e-6;
+24. the DQN family's other fields at B=128 on ToyCatch frames: a tanh
+   SmallDQN, an elu VirtualBNDQN, a tanh LargeDQN and a BNDQN, card
+   against CPU within phase 4's tolerance, each on the split route (K1
+   launching, K3/K4/K5/K6 not; BNDQN no kernel); a forced fused route on
+   tanh raises; ``prepare_batch_params_chunked`` at LargeDQN B=256, chunk
+   64, against the whole prepare bit for bit, float32 and bfloat16, with
+   both peak memories;
+25. ``main replay``: phase 4's policy file, 8 episodes on 8 engine slots
+   (K1 launches; teacher-forced against the CPU, the returns the CPU's
+   for the same engine episode seeds but at a near tie); a GPU-style
+   LargeDQN chain on a 25M-float table (K3 launches; every K3 forward
+   teacher-forced against the CPU's plain K3 within 1e-3·max|score|, the
+   argmax equal but at a near tie; K3 at the replay's batch sizes against
+   its plain version on the card, and timed); phase 14's maze
+   policy through ``rollout_batch_scan`` (teacher-forced on the CPU, the
+   trajectories within 1e-3, the .npz keys the CPU's).
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -860,8 +886,9 @@ def time_by_batch(name: str, by_batch: dict, make_call, rel_tol: float, lanes=No
 
 
 def time_large_fused_by_batch(device, by_batch: dict) -> dict:
-    """K3 at each batch size the GA launched it with, on first-generation
-    genomes of the phase's 4-action LargeDQN, checked and timed."""
+    """K3 at each batch size a path (the GA, the chain replay) launched it
+    with, on first-generation genomes of a 4-action LargeDQN, checked and
+    timed."""
     import torch
 
     from deep_neuroevolution_torch.models.core import extract_patches
@@ -1341,21 +1368,29 @@ def graph_against_eager(tr, idx) -> dict:
     return out
 
 
-def maze_teacher_forced(tr, members: int = 8) -> dict:
-    """A whole 400-step maze episode of ``members`` perturbed members of
-    the trainer's θ recorded on the card; then each recorded state goes
-    through the CPU's observe, forward and step (fed the card's actions),
-    and that one step must match the card's: observations and actions
-    within 1e-5, the state and reward within 1e-4 (a few float32 ulps of a
-    coordinate near 200: sin, cos and division round otherwise on the
-    card), done and the step counter exactly."""
+def maze_members(tr, members: int = 8):
+    """``members`` perturbed members of a maze trainer's θ, on the card."""
     import torch
 
-    env, model, D = tr.env, tr.model, tr.model.num_params
+    D = tr.model.num_params
     idx = torch.from_numpy(np.linspace(0, tr.noise.size - D, members).astype(np.int32)).to(tr.device)
-    thetas = tr.theta[None] + tr.config.noise_stdev * tr.noise.get_batch(idx, D)
+    return tr.theta[None] + tr.config.noise_stdev * tr.noise.get_batch(idx, D)
+
+
+def maze_teacher_forced(env, model, thetas, what: str = "maze") -> dict:
+    """A whole 400-step maze episode of the members ``thetas`` recorded on
+    the card; then each recorded state goes through the CPU's observe,
+    forward and step (fed the card's actions), and that one step must
+    match the card's: observations and actions within 1e-5, the state and
+    reward within 1e-4 (a few float32 ulps of a coordinate near 200: sin,
+    cos and division round otherwise on the card), done and the step
+    counter exactly. Returns the errors and the card's positions after each
+    step, ``[400, members, 2]``."""
+    import torch
+
+    members = thetas.shape[0]
     parts = {k: v.contiguous() for k, v in model.unflatten(thetas).items()}
-    state, rec = env.reset(members, None, tr.device), []
+    state, rec = env.reset(members, None, thetas.device), []
     for _ in range(400):
         obs = env.observe(state)
         a = model.batch_act_parts(parts, obs)
@@ -1376,15 +1411,16 @@ def maze_teacher_forced(tr, members: int = 8) -> dict:
         errs["action"] = max(errs["action"], float((a_c - a).abs().max()))
         errs["state"] = max(errs["state"], max(float((x - y).abs().max()) for x, y in zip(ns_c[:5], ns[:5])))
         errs["reward"] = max(errs["reward"], float((r_c - r).abs().max()))
-        require(torch.equal(d_c, d) and torch.equal(ns_c.t, ns.t), "maze: done or the step counter differs")
+        require(torch.equal(d_c, d) and torch.equal(ns_c.t, ns.t), f"{what}: done or the step counter differs")
         moved += int(((ns.x != s.x) | (ns.y != s.y)).sum())
         undone += int(((ns.x == s.x) & (ns.y == s.y) & (ns.speed != 0)).sum())  # a wall in the way
-    print("maze_teacher_forced " + json.dumps(dict(members=members, steps=len(rec), moves=moved,
-                                                   moves_undone=undone, **errs)), flush=True)
+    print(f"{what}_teacher_forced " + json.dumps(dict(members=members, steps=len(rec), moves=moved,
+                                                      moves_undone=undone, **errs)), flush=True)
     for k, tol in (("obs", 1e-5), ("action", 1e-5), ("state", 1e-4), ("reward", 1e-4)):
-        require(errs[k] <= tol, f"maze: card vs CPU {k} max abs err {errs[k]} > {tol}")
-    require(moved > 0, "maze: no member moved")
-    return errs
+        require(errs[k] <= tol, f"{what}: card vs CPU {k} max abs err {errs[k]} > {tol}")
+    require(moved > 0, f"{what}: no member moved")
+    positions = torch.stack([torch.stack(step[n + 2 : n + 4], dim=1) for step in rec])  # nstate's x, y
+    return dict(errs, positions=positions)
 
 def k2_path_row(launches: dict, row: dict) -> dict:
     """K2's launches on a path and its numbers at that path's shape."""
@@ -2023,12 +2059,445 @@ def run_obs_modes(device) -> dict:
     return runs
 
 
+# phase 23: the counter-based and device-built noise sources
+VIRTUAL_GRAD_PAIRS = (256, 2560)  # the main path's pairs a generation, and frostbite_es.json's
+VIRTUAL_CPU_PAIRS = 8  # the gradient's card-vs-CPU check, cut to these pairs
+NOISE_MODES = ("virtual", "device")
+
+
+def synced_seconds(fn):
+    """(fn's result, its wall seconds with the card synced on both ends)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_virtual_rows(device, dim: int) -> dict:
+    """VirtualNoise rows on the card against the CPU's: the threefry words
+    equal, the normals within 1e-6 (both run the same torch ops; float64
+    log1p may round otherwise by an ulp)."""
+    import torch
+
+    from deep_neuroevolution_torch.ops import noise
+
+    vn = noise.VirtualNoise.from_seed(device=device)
+    ids = torch.tensor([0, 1, 12345, 2**31 - 1])
+    k0, k1 = noise.fold_in_batch(vn.key, ids)
+    card_bits = noise._counter_bits(k0[:, None].to(device), k1[:, None].to(device), 0, dim, device).cpu()
+    cpu_bits = noise._counter_bits(k0[:, None], k1[:, None], 0, dim, torch.device("cpu"))
+    require(torch.equal(card_bits, cpu_bits), "VirtualNoise: the card's threefry words differ from the CPU's")
+    card, cpu = vn.get_batch(ids, dim).cpu(), vn.to("cpu").get_batch(ids, dim)
+    err = float((card - cpu).abs().max())
+    require(err <= 1e-6, f"VirtualNoise: card rows vs the CPU's {err} > 1e-6")
+    return dict(rows=int(ids.numel()), dim=dim, bits_equal=True, normals_max_abs_err=err,
+                normals_differing=int((card != cpu).sum()))
+
+
+def check_from_key(device) -> dict:
+    """The 250M-float ``noise: device`` table built on the card, timed; its
+    first 2^20 floats against the CPU's, its moments."""
+    import torch
+
+    from deep_neuroevolution_torch.ops import noise
+
+    key = noise.prng_key(123)
+    table, seconds = synced_seconds(lambda: noise.NoiseTable.from_key(key, device=device))
+    head = noise.normal(key, 1 << 20, device="cpu")
+    err = float((table.noise[: 1 << 20].cpu() - head).abs().max())
+    mean, std = float(table.noise.mean()), float(table.noise.std())
+    require(table.size == noise.DEFAULT_COUNT and bool(torch.isfinite(table.noise).all()), "from_key: not finite")
+    require(err <= 1e-6 and abs(mean) < 1e-3 and abs(std - 1) < 1e-3, f"from_key: err {err}, mean {mean}, std {std}")
+    return dict(count=table.size, seconds=seconds, head_max_abs_err=err, mean=mean, std=std)
+
+
+def time_virtual_gradient(device, dim: int) -> dict:
+    """The VirtualNoise gradient (rows regenerated ``grad_chunk`` = 256 at a
+    time, no K2) at each of ``VIRTUAL_GRAD_PAIRS`` × ``dim`` on the card,
+    one call each (CUDA events); the first ``VIRTUAL_CPU_PAIRS`` pairs
+    against the CPU within 1e-5·max|g|."""
+    import torch
+
+    from deep_neuroevolution_torch.ops import fitness, noise
+
+    vn = noise.VirtualNoise.from_seed(device=device)
+    gen = torch.Generator().manual_seed(3)
+    out = {}
+    for pairs in VIRTUAL_GRAD_PAIRS:
+        idx = vn.sample_index_batch(gen, dim, pairs)
+        w = torch.randn(pairs, generator=gen)
+        g = fitness.gradient_from_noise(vn, idx, w.to(device), dim)  # also the warm-up
+        out[f"ms_{pairs}"] = cuda_ms(lambda: fitness.gradient_from_noise(vn, idx, w.to(device), dim), 1, warmup=0)
+        require(bool(torch.isfinite(g).all()), f"VirtualNoise gradient at {pairs} pairs is not finite")
+    idx, w = idx[:VIRTUAL_CPU_PAIRS], w[:VIRTUAL_CPU_PAIRS]
+    card = fitness.gradient_from_noise(vn, idx, w.to(device), dim).cpu()
+    cpu = fitness.gradient_from_noise(vn.to("cpu"), idx, w, dim)
+    err, tol = float((card - cpu).abs().max()), 1e-5 * float(cpu.abs().max())
+    require(err <= tol, f"VirtualNoise gradient card vs CPU {err} > {tol}")
+    return dict(out, dim=dim, cpu_pairs=VIRTUAL_CPU_PAIRS, max_abs_err=err, tol=tol)
+
+
+def run_es_noise_modes(device, generations: int = 2) -> dict:
+    """Phase 4's cut of es_atari_config.json on ``noise: virtual`` and on
+    ``noise: device`` (a 25M-float table built on the card), through the
+    loader: ``generations`` generations each, every one with K1 launching
+    and K2 launching 0 times (virtual) or once (device)."""
+    import torch
+
+    from deep_neuroevolution_torch.ops import noise
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / "es_atari_config.json").read_text())
+    runs = {}
+    for mode in NOISE_MODES:
+        tr, load_s = synced_seconds(lambda: config.load_experiment(exp, device=device,
+                                                                   overrides={**SMOKE_OVERRIDES, "noise": mode}))
+        want = noise.VirtualNoise if mode == "virtual" else noise.NoiseTable
+        require(type(tr.noise) is want and tr.noise.size == SMOKE_OVERRIDES["noise_size"], f"{mode}: {tr.noise}")
+        rows = []
+        try:
+            with record_k2() as seen:
+                for _ in range(generations):
+                    zero_counters()
+                    st, seconds = synced_seconds(tr.train_step)
+                    launches, steps = read_counters(), int(st.lengths.sum())
+                    rows.append(dict(seconds=seconds, timesteps=steps, frames_per_s=4 * steps / seconds,
+                                     k1=launches["population_linear"], k2=launches["noise_gradient"]))
+                    require(rows[-1]["k1"] > 0, f"ES on noise {mode}: K1 never launched")
+                    require(rows[-1]["k2"] == (0 if mode == "virtual" else 1),
+                            f"ES on noise {mode}: K2 {rows[-1]['k2']}")
+                    require(bool(np.isfinite(st.returns).all()) and bool(torch.isfinite(tr.theta).all()),
+                            f"ES on noise {mode}: not finite")
+            require(len(seen) == sum(r["k2"] for r in rows), f"ES on noise {mode}: {len(seen)} K2 calls recorded")
+            # K2 on the card-built table, the first generation's offsets and weights, against its plain version
+            k2_err = check_k2(tr.noise.noise, *seen[0], tr.model.num_params) if seen else None
+        finally:
+            tr.close()
+        runs[mode] = dict(load_seconds=load_s, generations=rows, k1_by_batch=by_batch_k1(), k2_max_abs_err=k2_err)
+        print(f"es_noise_{mode} " + json.dumps(runs[mode]), flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    return runs
+
+
+def run_maze_ga_virtual(device, generations: int = 2) -> dict:
+    """maze_es.json as a GA (CPU-style chains) on ``noise: virtual``:
+    every cached parent's θ against its chain rebuilt whole from the
+    VirtualNoise (one rounding a step against two: within 1e-6)."""
+    from deep_neuroevolution_torch.ops import noise
+    from deep_neuroevolution_torch.utils import checkpoint, config
+
+    exp = json.loads((ROOT / "configurations" / "maze_es.json").read_text())
+    tr = config.load_experiment(exp, device=device, algo="ga", overrides={"noise": "virtual"})
+    require(isinstance(tr.noise, noise.VirtualNoise), "maze GA: not on a VirtualNoise")
+    seconds = [synced_seconds(tr.train_step)[1] for _ in range(generations)]
+    gaps = [float((checkpoint.theta_from_seed_chain(tr.model, tr.noise, list(seeds), "cpu", tr.config.noise_stdev)
+                   - cached).abs().max())
+            for seeds, cached in zip(tr.cached_parent_seeds, tr.cached_parent_thetas)]
+    out = dict(seconds=seconds, population=tr.config.population_size, parents=len(gaps),
+               max_chain=max(len(s) for s in tr.cached_parent_seeds), cache_vs_whole_chain_max_abs=max(gaps))
+    print("maze_ga_virtual " + json.dumps(out), flush=True)
+    require(out["max_chain"] == generations and max(gaps) <= 1e-6, f"maze GA on virtual noise: {out}")
+    return out
+
+
+# phase 24: the DQN family's other fields and BNDQN at B=128 on ToyCatch frames
+VARIANTS = (("SmallDQN", "tanh"), ("VirtualBNDQN", "elu"), ("LargeDQN", "tanh"), ("BNDQN", "relu"))
+VARIANT_B = 128  # an ES round's pipeline group
+CHUNK_CASE = (256, 64)  # LargeDQN members and the chunk of prepare_batch_params_chunked
+
+
+def near_members(model, B: int, device):
+    """B members near a normc init: θ₀ + 0.02·ε."""
+    import torch
+
+    gen = torch.Generator().manual_seed(B)
+    base = model.init_theta(gen, device)
+    return base[None] + 0.02 * torch.randn((B, model.num_params), generator=gen).to(device)
+
+
+def variant_scores(model, thetas, obs, ref):
+    """Scores on the split route (VBN stats from ``ref``), all on
+    ``thetas``' device, and the prepared parts' route."""
+    ctx = model.batch_ref_stats(thetas, ref) if model.needs_ref_batch else None
+    parts, ctx = model.prepare_batch_params((thetas, ctx))
+    route = "K3" if "__fused_lg__" in parts else "fused" if "__fused__" in parts else "split"
+    return model.batch_scores_parts(parts, obs, ctx), route
+
+
+def run_model_variants(device) -> dict:
+    """A tanh SmallDQN, an elu VirtualBNDQN, a tanh LargeDQN and a BNDQN at
+    B=128 on ToyCatch frames, card against CPU within phase 4's tolerance
+    (1e-3·max(1, max|score|), argmax equal but at a near tie), each on the
+    split route with K1 launching and K3, K4, K5, K6 not (BNDQN: no kernel,
+    its fc a plain batched product); a forced fused route on tanh raises;
+    ``prepare_batch_params_chunked`` against the whole prepare."""
+    import torch
+
+    from deep_neuroevolution_torch import models
+    from deep_neuroevolution_torch.algos.rollout_host import collect_ref_batch_host
+    from deep_neuroevolution_torch.envs.atari import AtariEnv
+
+    env = AtariEnv("toy", batch_size=VARIANT_B)
+    try:
+        frames = collect_ref_batch_host(env, 11, device, batch_size=VARIANT_B + 16)
+    finally:
+        env.close()
+    obs, ref = frames[:VARIANT_B], frames[VARIANT_B:]
+    rows = []
+    for name, nonlin in VARIANTS:
+        model = getattr(models, name)(num_actions=4, nonlin_type=nonlin)
+        thetas = near_members(model, VARIANT_B, device)
+        zero_counters()
+        (card, route), _ = synced_seconds(lambda: variant_scores(model, thetas, obs, ref))
+        launches = read_counters()
+        cpu, _ = variant_scores(model, thetas.cpu(), obs.cpu(), ref.cpu())
+        card = card.cpu()
+        err, tol = float((card - cpu).abs().max()), 1e-3 * max(1.0, float(cpu.abs().max()))
+        clear = check_top_actions(card, cpu, 2 * tol, f"{name} {nonlin}")
+        rows.append(dict(model=name, nonlin=nonlin, B=VARIANT_B, route=route, k1=launches["population_linear"],
+                         others={k: v for k, v in launches.items() if not k.startswith("population_linear")},
+                         max_abs_err=err, tol=tol, clear_rows=clear))
+        print("model_variant " + json.dumps(rows[-1]), flush=True)
+        require(route == "split" and err <= tol, f"{name} {nonlin}: route {route}, card vs CPU {err} > {tol}")
+        require(rows[-1]["k1"] == (0 if name == "BNDQN" else 1), f"{name} {nonlin}: K1 launched {rows[-1]['k1']}")
+        require(not any(rows[-1]["others"].values()), f"{name} {nonlin}: another kernel launched")
+        del thetas
+    raised = []
+    for cls, kw in ((models.SmallDQN, dict(conv_impl="fused")), (models.LargeDQN, dict(forward_impl="fused")),
+                    (models.VirtualBNDQN, dict(forward_impl="fused1")), (models.VirtualBNDQN, dict(forward_impl="fused"))):
+        try:
+            cls(num_actions=4, nonlin_type="tanh", **kw)
+        except ValueError:
+            raised.append(f"{cls.__name__} {kw}")
+    require(len(raised) == 4, f"a forced fused route on tanh did not raise: {raised}")
+    torch.cuda.empty_cache()
+    return dict(rows=rows, fused_on_tanh_raised=raised, chunked=check_chunked_prepare(device))
+
+
+def check_chunked_prepare(device) -> list:
+    """``prepare_batch_params_chunked`` of LargeDQN members (the card's
+    'auto' route, K3's layout) against the whole prepare, float32 and
+    bfloat16: every tensor equal bit for bit; each one's peak device memory
+    above its input."""
+    import torch
+
+    from deep_neuroevolution_torch import models
+
+    B, chunk = CHUNK_CASE
+    out = []
+    for dt in ("float32", "bfloat16"):
+        model = models.LargeDQN(num_actions=4, compute_dtype=dt)
+        thetas = near_members(model, B, device)
+        peaks, parts = [], []
+        for prep in (lambda: model.prepare_batch_params((thetas, None)),
+                     lambda: model.prepare_batch_params_chunked((thetas, None), chunk)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            parts.append(prep()[0]["__fused_lg__"])
+            torch.cuda.synchronize()
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 1e9)
+        whole, chunked = parts
+        equal = whole.keys() == chunked.keys() and all(torch.equal(whole[k], chunked[k]) for k in whole)
+        out.append(dict(dtype=dt, B=B, chunk=chunk, equal=equal, whole_peak_gb=peaks[0], chunked_peak_gb=peaks[1],
+                        theta_gb=thetas.numel() * 4 / 1e9))
+        print("chunked_prepare " + json.dumps(out[-1]), flush=True)
+        require(equal, f"chunked prepare ({dt}) differs from the whole prepare")
+        del thetas, parts, whole, chunked
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 25: replays through ``main replay``
+REPLAY_EPISODES = 8
+REPLAY_ENV = {"batch_size": 8}
+RECORD_CALLS = 400  # forwards recorded for the teacher-forced check
+
+
+def cli_json(argv) -> dict:
+    """``main`` on ``argv``; its stats line, parsed."""
+    import io
+
+    from deep_neuroevolution_torch import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    require(rc == 0, f"main {' '.join(argv)} exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+@contextlib.contextmanager
+def recording_scores(cls, calls: list, method: str = "batch_scores_parts"):
+    """Every ``cls.<method>(parts, obs, ...)`` call's frames and scores,
+    copied to the CPU (the first ``RECORD_CALLS``)."""
+    real = getattr(cls, method)
+
+    def recorded(self, parts, obs, *rest, **kw):
+        y = real(self, parts, obs, *rest, **kw)
+        if len(calls) < RECORD_CALLS:
+            calls.append((obs.cpu(), y.cpu()))
+        return y
+
+    setattr(cls, method, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(cls, method, real)
+
+
+def replay_toy_policy(device, path: str) -> dict:
+    """``main replay --snapshot`` of phase 4's policy file, 8 episodes on 8
+    engine slots, on the card (K1 must launch) and on the CPU with the
+    same engine episode seeds. Teacher-forced: every recorded card forward
+    again on the CPU from the card's frames, within phase 4's tolerance,
+    the argmax equal but at a near tie. The returns equal the CPU's, or a
+    near tie was recorded (the free-running replays part there)."""
+    from deep_neuroevolution_torch.models import VirtualBNDQN
+    from deep_neuroevolution_torch.utils import checkpoint, viz
+
+    argv = ["replay", "--snapshot", path, "--env", "toy", "--episodes", str(REPLAY_EPISODES),
+            "--env_kwargs", json.dumps(REPLAY_ENV)]
+    calls = []
+    zero_counters()
+    with recording_scores(VirtualBNDQN, calls):
+        card, seconds = synced_seconds(lambda: cli_json(argv + ["--device", str(device)]))
+    launches = read_counters()
+    cpu = viz.replay_snapshot(path, env_id="toy", episodes=REPLAY_EPISODES, env_kwargs=REPLAY_ENV, device="cpu")
+    model, theta, payload = checkpoint.load_policy_snapshot(path, device="cpu")
+    stats = model.batch_ref_stats(theta[None], payload["ref_batch"])
+    err = near = 0.0
+    tol = 0.0
+    for obs, scores in calls:
+        n = obs.shape[0]
+        ctx = type(stats)(*(tuple(x.expand(n, -1) for x in f) for f in stats))
+        parts, ctx = model.prepare_batch_params((theta[None].expand(n, -1), ctx))
+        ref = model.batch_scores_parts(parts, obs, ctx)
+        t = 1e-3 * max(1.0, float(ref.abs().max()))
+        err, tol = max(err, float((scores - ref).abs().max())), max(tol, t)
+        top2 = ref.topk(2, dim=-1).values
+        near += int(((top2[:, 0] - top2[:, 1]) <= 2 * t).sum())
+        check_top_actions(scores, ref, 2 * t, "replay teacher-forced")
+    equal = card["returns"] == cpu["returns"] and card["lengths"] == cpu["lengths"]
+    out = dict(seconds=seconds, k1=launches["population_linear"], k1_by_batch=by_batch_k1(),
+               returns_card=card["returns"], returns_cpu=cpu["returns"], lengths_card=card["lengths"],
+               free_running_equal=equal, forwards_recorded=len(calls), teacher_forced_max_abs_err=err,
+               teacher_forced_tol=tol, near_ties=int(near))
+    print("replay_toy " + json.dumps(out), flush=True)
+    require(launches["population_linear"] > 0, "replay: K1 never launched")
+    require(err <= tol, f"replay teacher-forced: card vs CPU {err} > {tol}")
+    require(equal or near > 0, "replay: the returns part from the CPU's with no near tie recorded")
+    require(len(card["returns"]) == REPLAY_EPISODES and all(math.isfinite(r) for r in card["returns"]), "replay: returns")
+    return out
+
+
+def replay_large_chain(device) -> dict:
+    """``main replay --seeds`` of a GPU-style LargeDQN chain (the model of
+    ga_atari_config.json, at its widths) on a 25M-float table, 8 episodes
+    on 8 engine slots: K3 must launch (the card's 'auto' route). Every
+    recorded K3 forward again on the CPU (its plain K3, θ rebuilt from the
+    chain on a CPU table) from the card's frames, within phase 5's
+    1e-3·max|score|, the argmax equal but at a near tie; then K3 at each
+    batch size the replay launched it with, against its plain version on
+    the card and timed (phase 7's check)."""
+    import torch
+
+    from deep_neuroevolution_torch import models
+    from deep_neuroevolution_torch.models.dqn import LargeDQN
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
+    from deep_neuroevolution_torch.utils import checkpoint
+
+    exp = json.loads((ROOT / "configurations" / "ga_atari_config.json").read_text())
+    chain = [123, [456, 0.002], [789, 0.002]]
+    argv = ["replay", "--seeds", json.dumps(chain), "--model", exp["model"],
+            "--model_kwargs", json.dumps({"num_actions": 4}), "--env", "toy", "--episodes", str(REPLAY_EPISODES),
+            "--env_kwargs", json.dumps(REPLAY_ENV), "--noise_count", str(GA_OVERRIDES["noise_size"]),
+            "--device", str(device)]
+    calls = []
+    zero_counters()
+    with recording_scores(LargeDQN, calls, "batch_scores_fused"):
+        stats, seconds = synced_seconds(lambda: cli_json(argv))
+    launches = read_counters()
+    k3 = kernel_counters()["large_dqn_fused_scores"]
+    by_batch = dict(k3.launches_by_batch)
+    cls = models.get_model(exp["model"])
+    require(issubclass(cls, LargeDQN), f"{exp['model']} is not a LargeDQN")
+    model = cls(num_actions=4, forward_impl="fused")  # on the CPU: the plain K3
+    theta = checkpoint.theta_from_seed_chain(model, NoiseTable.from_seed(count=GA_OVERRIDES["noise_size"]), chain)
+    prepared, na = {}, model.num_actions
+    err = tol = 0.0
+    near = 0
+    for obs, scores in calls:
+        n = obs.shape[0]
+        if n not in prepared:
+            prepared[n] = model.prepare_batch_params((theta[None].expand(n, -1), None))[0]["__fused_lg__"]
+        ref, card = model.batch_scores_fused(prepared[n], obs)[:, :na], scores[:, :na]
+        t = 1e-3 * float(ref.abs().max())
+        err, tol = max(err, float((card - ref).abs().max())), max(tol, t)
+        require(float((card - ref).abs().max()) <= t, f"replay of a LargeDQN chain: K3 vs the CPU's plain K3 > {t}")
+        top2 = ref.topk(2, dim=-1).values
+        near += int(((top2[:, 0] - top2[:, 1]) <= 2 * t).sum())
+        check_top_actions(card, ref, 2 * t, "replay of a LargeDQN chain, teacher-forced")
+    del prepared
+    timed = time_large_fused_by_batch(device, by_batch)
+    out = dict(model=exp["model"], seconds=seconds, k3=launches["large_dqn_fused_scores"],
+               k3_by_batch={str(b): n for b, n in by_batch.items()}, returns=stats["returns"],
+               lengths=stats["lengths"], forwards_recorded=len(calls), teacher_forced_max_abs_err=err,
+               teacher_forced_tol=tol, near_ties=near,
+               k3_graph_ms_by_batch={str(r["B"]): r["graph_ms"] for r in timed["rows"]},
+               k3_plain_max_abs_err_by_batch={str(r["B"]): r["max_abs_err"] for r in timed["rows"]})
+    print("replay_large_chain " + json.dumps(out), flush=True)
+    require(out["k3"] > 0, "replay of a LargeDQN chain: K3 never launched")
+    require(len(calls) == min(out["k3"], RECORD_CALLS), f"recorded {len(calls)} of {out['k3']} K3 forwards")
+    require(all(math.isfinite(r) for r in stats["returns"]) and min(stats["lengths"]) >= 1, "replay: returns")
+    torch.cuda.empty_cache()
+    return out
+
+
+def replay_maze_policy(device, path: str, work: str) -> dict:
+    """``main replay --snapshot`` of phase 14's maze policy on the card
+    (``rollout_batch_scan``'s graphs) and on the CPU: the .npz keys equal;
+    that recording teacher-forced on the CPU (phase 14's tolerances: within
+    1e-5 / 1e-4) from an eager recording of the same episodes on the card;
+    the card's graphed trajectories against that eager recording, and the
+    CPU's free-running ones against them, each within 1e-3 (the graphs
+    read θ through a broadcast view, the recording a copy, so cuBLAS may
+    sum otherwise)."""
+    from deep_neuroevolution_torch.utils import checkpoint, config, viz
+
+    card_npz, cpu_npz = str(Path(work) / "maze_card.npz"), str(Path(work) / "maze_cpu.npz")
+    argv = ["replay", "--snapshot", path, "--env", "maze", "--episodes", str(REPLAY_EPISODES),
+            "--save_frames", card_npz, "--device", str(device)]
+    card, seconds = synced_seconds(lambda: cli_json(argv))
+    cpu = viz.replay_snapshot(path, env_id="maze", episodes=REPLAY_EPISODES, save_frames=cpu_npz, device="cpu")
+    cz, pz = np.load(card_npz), np.load(cpu_npz)
+    require(sorted(cz.files) == sorted(pz.files) == ["bc_trajectory", "lengths", "returns"], "maze replay: .npz keys")
+    model, theta, _ = checkpoint.load_policy_snapshot(path, device=device)
+    forced = maze_teacher_forced(config.resolve_env("maze"), model, theta[None].expand(REPLAY_EPISODES, -1).contiguous(),
+                                 "maze_replay")
+    graph_vs_eager = float(np.abs(cz["bc_trajectory"] - forced["positions"].numpy()).max())
+    free = float(np.abs(cz["bc_trajectory"] - pz["bc_trajectory"]).max())
+    out = dict(seconds=seconds, returns_card=card["returns"], returns_cpu=cpu["returns"],
+               trajectory=list(cz["bc_trajectory"].shape), graph_vs_eager_max_abs=graph_vs_eager,
+               free_running_cpu_max_abs=free, **{k: v for k, v in forced.items() if k != "positions"})
+    print("replay_maze " + json.dumps(out), flush=True)
+    require(graph_vs_eager <= 1e-3, f"maze replay: graphed trajectories vs eager {graph_vs_eager} > 1e-3")
+    require(free <= 1e-3, f"maze replay: the CPU's free-running trajectories {free} > 1e-3")
+    return out
+
+
 def main() -> int:
     import torch
 
     from deep_neuroevolution_torch import resolve_device
 
     device = resolve_device("cuda")  # raises NoCudaDevice without a card
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")  # the policy files phase 25 replays
     # full float32 products everywhere (no TF32), for the checks below
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2058,6 +2527,10 @@ def main() -> int:
         check_generation(run)
     tr = run["trainer"]
     es_launches = run["launches"]
+    from deep_neuroevolution_torch.utils import checkpoint
+
+    toy_policy, maze_policy = (str(Path(work.name) / f) for f in ("es_toy_policy.pkl", "maze_policy.pkl"))
+    checkpoint.save_policy_snapshot(toy_policy, tr.model, tr.theta, ref_batch=tr.ref_batch)
     timesteps = int(tr.last_stats.lengths.sum())
     gen_s = tr.last_stats.seconds  # train_step alone; set-up is the CLI's rest
     print(
@@ -2139,7 +2612,7 @@ def main() -> int:
 
     from deep_neuroevolution_torch.ops.noise import NoiseTable
 
-    with Phase("noise table"):
+    with Phase("noise table") as table_phase:
         table = NoiseTable.from_seed(device=device)  # the reference's 250M floats, built once
     device_paths = {}
     for name in DEVICE_CONFIGS:
@@ -2147,7 +2620,8 @@ def main() -> int:
             run = run_device_es(device, name, table)
             check_device_es(run, name)
             if name == "maze":
-                maze_teacher_forced(run["trainer"])
+                maze_teacher_forced(run["trainer"].env, run["trainer"].model, maze_members(run["trainer"]))
+                checkpoint.save_policy_snapshot(maze_policy, run["trainer"].model, run["trainer"].theta)
             ab = graph_against_eager(run["trainer"], run["idx"])
         tr = run["trainer"]
         with Phase(f"K2 at the {name} generation's shape"):
@@ -2242,6 +2716,36 @@ def main() -> int:
     )), flush=True)
     torch.cuda.empty_cache()
 
+    with Phase("noise sources: VirtualNoise, the device-built table, ES and GA on them"):
+        dim = VirtualBNDQN(num_actions=4).num_params
+        noise_runs = dict(virtual_rows=check_virtual_rows(device, dim), from_key=check_from_key(device))
+        torch.cuda.empty_cache()
+        noise_runs["virtual_gradient"] = time_virtual_gradient(device, dim)
+        noise_runs["es"] = run_es_noise_modes(device)
+        noise_runs["maze_ga_virtual"] = run_maze_ga_virtual(device)
+    noise_runs["from_key"]["host_from_seed_seconds"] = table_phase.seconds
+    noise_runs["phase22_gray_seconds"] = [r["seconds"] for r in obs_runs["gray"]]
+    print("noise_sources " + json.dumps(noise_runs), flush=True)
+    torch.cuda.empty_cache()
+
+    with Phase("model variants: other nonlinearities, BNDQN, the chunked prepare"):
+        variants = run_model_variants(device)
+    torch.cuda.empty_cache()
+
+    with Phase("replay: a policy file, a LargeDQN chain, the maze"):
+        replays = dict(toy=replay_toy_policy(device, toy_policy), large_chain=replay_large_chain(device),
+                       maze=replay_maze_policy(device, maze_policy, work.name))
+    work.cleanup()
+    es_virtual, es_device = (noise_runs["es"][m]["generations"][0] for m in NOISE_MODES)
+    ns_k1["es_virtual"] = dict(launches=es_virtual["k1"], by_batch=noise_runs["es"]["virtual"]["k1_by_batch"])
+    ns_k1["model_variants"] = dict(launches=sum(r["k1"] for r in variants["rows"]),
+                                   by_batch={r["model"]: r["k1"] for r in variants["rows"]})
+    ns_k1["replay_toy"] = dict(launches=replays["toy"]["k1"], by_batch=replays["toy"]["k1_by_batch"])
+    pairs = SMOKE_OVERRIDES["population_size"] // 2
+    device_paths["es_virtual"] = dict(launches=es_virtual["k2"], B=pairs, D=dim)
+    device_paths["es_device"] = dict(launches=es_device["k2"], B=pairs, D=dim,
+                                     max_abs_err=noise_runs["es"]["device"]["k2_max_abs_err"])
+
     def entry(name, source, replaces, launches, k, **extra):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2277,7 +2781,12 @@ def main() -> int:
               other_paths=device_paths),
         entry("large_dqn_fused_scores", "deep_neuroevolution_torch/csrc/large_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:298", ga_launches, k3_row,
-              graph_ms=k3_row["graph_ms"], split_ms=k3_row["split_ms"]),
+              graph_ms=k3_row["graph_ms"], split_ms=k3_row["split_ms"],
+              other_paths={"replay_large_chain": dict(
+                  launches=replays["large_chain"]["k3"], by_batch=replays["large_chain"]["k3_by_batch"],
+                  graph_ms_by_batch=replays["large_chain"]["k3_graph_ms_by_batch"],
+                  max_abs_err_by_batch=replays["large_chain"]["k3_plain_max_abs_err_by_batch"],
+                  teacher_forced_max_abs_err=replays["large_chain"]["teacher_forced_max_abs_err"])}),
         entry("vbn_dqn_fused1_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:147", route_launches["fused1"], k4_row,
               **vbn_extra("fused1", k4_row)),

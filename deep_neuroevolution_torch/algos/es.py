@@ -17,7 +17,9 @@ es_distributed/es.py and gpu_implementation/es.py:
   random policy collects once (es.py:159-162);
 * centered ranks, g = Σ(w⁺−w⁻)ᵢ·εᵢ / (2n) through kernel K2 (``grad_chunk``
   pairs at a time in its plain version), and the optimizer step on
-  −g + l2coeff·θ (es.py:281-301);
+  −g + l2coeff·θ (es.py:281-301). On a ``VirtualNoise`` (the loader's
+  ``noise: virtual``) ε is regenerated, ``grad_chunk`` rows at a time, and
+  K2, which reads a table, takes no part (the JAX package's es.py:335);
 * the episode-cutoff DSL and its adaptive bump (es.py:169-186, 308-311);
 * ``num_eval_episodes`` noiseless episodes of the pre-update θ each
   generation (es.py:388-405), logged as the reference's ``Eval*`` metrics;
@@ -72,7 +74,7 @@ from ..device import resolve_device
 from ..models.core import Model
 from ..models.mlp import MLPContext
 from ..ops import fitness, obstat, optim
-from ..ops.noise import NoiseTable
+from ..ops.noise import NoiseTable, VirtualNoise
 from ..ops.noise_gradient import noise_gradient
 from ..utils import tabular as tlogger
 from ..utils import vine
@@ -172,9 +174,7 @@ class ESTrainer:
         self.config = config
         self.optimizer = optimizer or optim.Adam(stepsize=0.01)
         self.gen = torch.Generator().manual_seed(seed)
-        self.noise = noise_table or NoiseTable.from_seed(device=self.device)
-        if self.noise.noise.device != self.device:
-            self.noise = NoiseTable(self.noise.noise.to(self.device))
+        self.noise = (noise_table or NoiseTable.from_seed(device=self.device)).to(self.device)
         if self.noise.size <= model.num_params:
             raise ValueError(f"noise table ({self.noise.size}) must exceed num_params ({model.num_params})")
         self.theta = model.init_theta(self.gen, self.device)
@@ -357,7 +357,7 @@ class ESTrainer:
         return fitness.process_returns(rets, srets, self.config.return_proc_mode)
 
     def _compute_update(self, noise_idxs: torch.Tensor, returns_n2, signreturns_n2):
-        """Rank transform → gradient (K2) → L2 → optimizer step, from [n, 2]
+        """Rank transform → gradient (K2 on a table) → L2 → optimizer step, from [n, 2]
         returns (numpy or tensors). Returns (g, new opt state, new θ, update
         ratio)."""
         cfg = self.config
@@ -365,8 +365,11 @@ class ESTrainer:
         srets = torch.as_tensor(signreturns_n2, device=self.device)
         proc = self._process_returns(rets, srets)
         w = (proc[:, 0] - proc[:, 1]).contiguous()
-        g = noise_gradient(self.noise.noise, noise_idxs.to(self.device, torch.int32).contiguous(), w,
-                           self.model.num_params, cfg.grad_chunk)
+        idxs = noise_idxs.to(self.device, torch.int32).contiguous()
+        if isinstance(self.noise, VirtualNoise):  # rows regenerated, no table for K2 (es.py:335)
+            g = fitness.gradient_from_noise(self.noise, idxs, w, self.model.num_params, cfg.grad_chunk)
+        else:
+            g = noise_gradient(self.noise.noise, idxs, w, self.model.num_params, cfg.grad_chunk)
         g = g / rets.numel()  # es.py:296
         opt_state, theta, ratio = self.optimizer.update(self.opt_state, self.theta, -g + cfg.l2coeff * self.theta)
         return g, opt_state, theta, ratio

@@ -42,7 +42,10 @@ with ``seed``; ``_draw_offspring`` and ``_draw_seed`` are the only places
 it is drawn, and on a device env a rollout seed seeds the generator of its
 round's reset states (``_episode_starts``).
 
-Not ported yet: VirtualNoise and the pod trainers.
+The noise source is a ``NoiseTable`` or a ``VirtualNoise`` (the loader's
+``noise: virtual``), whose rows every genome step regenerates (the JAX
+package's ``_table_arg``, :250-257); the genome functions take the source
+object itself. Not ported yet: the pod trainers.
 """
 
 from __future__ import annotations
@@ -127,9 +130,7 @@ class GATrainer:
         self.model = model
         self.config = config
         self.gen = torch.Generator().manual_seed(seed)
-        self.noise = noise_table or NoiseTable.from_seed(device=self.device)
-        if self.noise.noise.device != self.device:
-            self.noise = NoiseTable(self.noise.noise.to(self.device))
+        self.noise = (noise_table or NoiseTable.from_seed(device=self.device)).to(self.device)
         if self.noise.size <= model.num_params:
             raise ValueError(f"noise table ({self.noise.size}) must exceed num_params ({model.num_params})")
         self.cutoff = parse_cutoff(config.episode_cutoff_mode, env.default_timestep_cutoff)
@@ -196,7 +197,7 @@ class GATrainer:
     # ------------------------------------------------------------- genomes
 
     def _rows(self, idxs) -> torch.Tensor:
-        return noise_rows(self.noise.noise, torch.as_tensor(np.asarray(idxs, np.int64)), self.model.num_params)
+        return noise_rows(self.noise, torch.as_tensor(np.asarray(idxs, np.int64)), self.model.num_params)
 
     def _offspring_thetas(self, pidx: np.ndarray, midx: np.ndarray, power: float, randomize: bool) -> torch.Tensor:
         """θ = ε·scale_by, or ``reinit_theta(ε)`` for CPU-style genomes
@@ -221,14 +222,14 @@ class GATrainer:
             parent = self.cached_parent_thetas[self.cached_parent_seeds.index(seeds[:-1])]
             tail = seeds[-1]
             idx, power = tail if isinstance(tail, tuple) else (tail, self.config.noise_stdev)
-            return genome.extend(parent, self.noise.noise, idx, power, dim)
+            return genome.extend(parent, self.noise, idx, power, dim)
         if self.config.genome_style == "cpu":
-            return genome.reconstruct_cpu_style(self.noise.noise, seeds, dim, self.model.reinit_theta,
+            return genome.reconstruct_cpu_style(self.noise, seeds, dim, self.model.reinit_theta,
                                                 self.config.noise_stdev)
         if len(seeds) == 1:
             return self._rows([seeds[0]])[0] * self.scale_by
         idxs, powers = genome.pad_chains([seeds], len(seeds))
-        return genome.reconstruct_gpu_style(self.noise.noise, idxs[0], powers[0], dim, self.scale_by)
+        return genome.reconstruct_gpu_style(self.noise, idxs[0], powers[0], dim, self.scale_by)
 
     # ----------------------------------------------------------- evaluation
 

@@ -37,8 +37,9 @@ Randomness comes from the trainer's CPU ``torch.Generator`` (ES's
 ``_draw_round``), and the parent draw of ``novelty_prob`` from a NumPy
 generator seeded from it; JAX's threefry draws cannot be reproduced.
 
-Not ported yet: ``VirtualNoise`` (the JAX package's ``_table_arg``), the
-pod trainers, MuJoCo.
+The noise source is a table or a ``VirtualNoise``, through ES's
+perturbation and gradient (the JAX package's ``_table_arg``, nses.py:88-95,
+248-251). Not ported yet: the pod trainers, MuJoCo.
 """
 
 from __future__ import annotations

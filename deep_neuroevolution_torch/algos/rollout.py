@@ -28,8 +28,16 @@ The caller hands in the slots' reset state (``env.reset``; antithetic pairs
 start from the same state, see ``paired_reset``), so tests can feed the
 JAX package's reset states in.
 
-Not ported yet: ``rollout_batch_scan`` (per-step trajectories, used by the
-JAX package's utils/viz.py).
+``rollout_batch_scan`` is the JAX package's scan variant (rollout.py:123-
+180): a fixed trip count and the per-step trajectories ``[T, B, ...]``
+(observations with ``save_obs``, the behavior after each step and the
+alive mask), for replays (utils/viz.py). It runs ``rollout_batch``'s loop,
+CUDA-graph chunks included, each step writing its outputs into buffers
+allocated before the loop (a graph writes a chunk's into staging buffers,
+copied to their steps after each replay). Past the step where every slot
+is done, nothing changes: the loop stops there and fills the rest with the
+frozen states' observation and behavior and alive 0, what the remaining
+steps would write.
 """
 
 from __future__ import annotations
@@ -90,8 +98,11 @@ def _leaves(c: _Carry) -> list:
     return [*c.state, *c[1:]]
 
 
-def _step(env: Env, act_fn: Callable, params, c: _Carry, collect_obstat: bool, obstat_mask) -> _Carry:
-    """One lockstep step of every slot; finished slots change nothing."""
+def _step(env: Env, act_fn: Callable, params, c: _Carry, collect_obstat: bool, obstat_mask,
+          record: Optional[Callable] = None) -> _Carry:
+    """One lockstep step of every slot; finished slots change nothing.
+    ``record(obs, alive, state)`` receives the step's observations, alive
+    mask and the slots' states after it."""
     obs = env.observe(c.state)
     actions = act_fn(params, obs)
     nstate, r, d = env.step(c.state, actions)
@@ -103,8 +114,11 @@ def _step(env: Env, act_fn: Callable, params, c: _Carry, collect_obstat: bool, o
         ob_sum = ob_sum + torch.sum(obs * m, dim=0)
         ob_sumsq = ob_sumsq + torch.sum(obs * obs * m, dim=0)
         ob_count = ob_count + torch.sum(sel)
+    state = _mask_tree(c.done, c.state, nstate)
+    if record is not None:
+        record(obs, alive, state)
     return _Carry(
-        _mask_tree(c.done, c.state, nstate), c.done | d, c.ret + r * alive, c.sret + torch.sign(r) * alive,
+        state, c.done | d, c.ret + r * alive, c.sret + torch.sign(r) * alive,
         c.length + alive.to(torch.int32), ob_sum, ob_sumsq, ob_count,
     )
 
@@ -126,6 +140,32 @@ def _capture(step: Callable, c: _Carry, k: int, gen: Optional[torch.Generator]):
     return c, graph.replay
 
 
+def _drive(step: Callable, staged: Callable, c: _Carry, T: int, gen: Optional[torch.Generator],
+           after_replay: Optional[Callable] = None):
+    """Up to ``T`` steps from ``c`` in chunks of ``CHECK_EVERY``, stopping
+    after the chunk in which every slot is done (see the module docstring).
+    Eager steps run ``step(c, t)``; on a card the chunks after the first
+    replay one graph of ``staged(c)`` steps, after which ``after_replay(t)``
+    runs. Returns the carry and the steps run."""
+    t, replay = 0, None
+    while t < T:
+        k = min(CHECK_EVERY, T - t)
+        if replay is not None and k == CHECK_EVERY:
+            replay()
+            if after_replay is not None:
+                after_replay(t)
+        elif c.done.device.type == "cuda" and t > 0 and T - t >= 2 * CHECK_EVERY:
+            c, replay = _capture(staged, c, CHECK_EVERY, gen)
+            continue  # the first replay runs these steps
+        else:
+            for i in range(k):
+                c = step(c, t + i)
+        t += k
+        if bool(c.done.all()):
+            break
+    return c, t
+
+
 def rollout_batch(
     env: Env,
     act_fn: Callable,  # (params, obs [B, ...]) -> actions [B, ...]
@@ -144,25 +184,68 @@ def rollout_batch(
     c = _Carry(state, zeros(B, torch.bool), zeros(B), zeros(B), zeros(B, torch.int32), zeros(env.obs_shape),
                zeros(env.obs_shape), zeros(()))
 
-    def step(c):
+    def step(c, t=None):
         return _step(env, act_fn, params, c, collect_obstat, obstat_mask)
 
-    t, replay = 0, None
-    while t < timestep_limit:
-        k = min(CHECK_EVERY, timestep_limit - t)
-        if replay is not None and k == CHECK_EVERY:
-            replay()
-        elif device.type == "cuda" and t > 0 and timestep_limit - t >= 2 * CHECK_EVERY:
-            c, replay = _capture(step, c, CHECK_EVERY, getattr(params[1], "gen", None))
-            continue  # the first replay runs these steps
-        else:
-            for _ in range(k):
-                c = step(c)
-        t += k
-        if bool(c.done.all()):
-            break
+    c, _ = _drive(step, step, c, timestep_limit, getattr(params[1], "gen", None))
     bc = env.behavior(c.state) if env.bc_dim else zeros((B, 0))
     return RolloutResult(c.ret, c.sret, c.length, bc, c.ob_sum, c.ob_sumsq, c.ob_count)
+
+
+def rollout_batch_scan(
+    env: Env,
+    act_fn: Callable,
+    params,
+    state,
+    timestep_limit: int,
+    save_obs: bool = False,
+):
+    """``rollout_batch`` with the per-step trajectories (the JAX package's
+    ``rollout_batch_scan``; see the module docstring). Returns
+    ``(RolloutResult, traj)``: ``traj`` is ``(obs [T, B, *obs_shape], bc_t
+    [T, B, bc_dim], alive [T, B])`` with ``save_obs``, else ``(bc_t,
+    alive)``; bc_t is the behavior of each slot's state after step t (a
+    finished slot's frozen state). Obs stats are not collected (zeros)."""
+    prep = getattr(act_fn, "prepare", None)
+    if prep is not None:
+        params = prep(params)
+    T = int(timestep_limit)
+    B, device = state[0].shape[0], state[0].device
+    zeros = lambda shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
+    c = _Carry(state, zeros(B, torch.bool), zeros(B), zeros(B), zeros(B, torch.int32), zeros(env.obs_shape),
+               zeros(env.obs_shape), zeros(()))
+    bufs = ([zeros((T, B) + tuple(env.obs_shape))] if save_obs else []) + [zeros((T, B, env.bc_dim)), zeros((T, B))]
+
+    def behavior(st):
+        return env.behavior(st) if env.bc_dim else zeros((B, 0))
+
+    def writer(views):
+        def record(obs, alive, st):
+            for dst, src in zip(views, ([obs] if save_obs else []) + [behavior(st), alive]):
+                dst.copy_(src)
+        return record
+
+    def step(c, t: int):
+        return _step(env, act_fn, params, c, False, None, writer([b[t] for b in bufs]))
+
+    stage = [b.new_zeros((min(CHECK_EVERY, T),) + tuple(b.shape[1:])) for b in bufs]
+    slot = [0]
+
+    def staged_step(c):  # the graph's k-th step writes into staging row k
+        k, slot[0] = slot[0], slot[0] + 1
+        return _step(env, act_fn, params, c, False, None, writer([b[k] for b in stage]))
+
+    def unstage(t: int):
+        for dst, src in zip(bufs, stage):
+            dst[t : t + CHECK_EVERY].copy_(src)
+
+    c, t = _drive(step, staged_step, c, T, getattr(params[1], "gen", None), unstage)
+    if t < T:  # every slot done: the steps left would change nothing, and alive stays 0
+        for dst, src in zip(bufs, ([env.observe(c.state)] if save_obs else []) + [behavior(c.state)]):
+            dst[t:] = src
+    bc = behavior(c.state)
+    zero_obs = zeros(env.obs_shape)
+    return RolloutResult(c.ret, c.sret, c.length, bc, zero_obs, zero_obs.clone(), zeros(())), tuple(bufs)
 
 
 def random_actions(env: Env, n: int, gen: torch.Generator, device) -> torch.Tensor:

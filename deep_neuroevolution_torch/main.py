@@ -1,4 +1,4 @@
-"""Command-line entry point of the port: ``train``.
+"""Command-line entry point of the port: ``train`` and ``replay``.
 
 The counterpart of the JAX package's main.py ``cmd_train``:
 
@@ -45,7 +45,19 @@ trainer's own generation count, which a resumed run carries on; the
 trainer snapshot is written once more at the end. ``--exp_str`` takes the
 experiment as JSON instead of ``--exp_file``. ``--profile_dir`` traces the
 last generation with ``torch.profiler`` (with ``--iterations 0``, the
-first). Not ported yet: ``replay``.
+first).
+
+``replay`` (the JAX package's main.py:108-146, 163-178) rolls a policy
+file of either package (``--snapshot``) or a seed-chain elite (``--seeds``
+with ``--model``, ``--model_kwargs``, ``--genome_style``, ``--noise_stdev``,
+``--noise_count``) out for ``--episodes`` episodes on ``--env`` (default:
+the file's, else the maze), writes the ``.npz`` of ``--save_frames`` and
+prints one JSON line of stats (utils/viz.py):
+
+    python -m deep_neuroevolution_torch.main replay --snapshot logs/snapshot_iter00010_rew5.pkl \
+        --env toy --episodes 8 --env_kwargs '{"batch_size": 8}'
+    python -m deep_neuroevolution_torch.main replay --seeds '[123, [456, 0.002]]' \
+        --model LargeModel --model_kwargs '{"num_actions": 4}' --env toy --noise_count 25000000
 """
 
 from __future__ import annotations
@@ -171,6 +183,35 @@ def profile_generation(trainer, out_dir: str):
     return stats
 
 
+def cmd_replay(args) -> int:
+    """Prints the replay's stats as one JSON line; 2 without a policy."""
+    from .utils.viz import replay_seed_chain, replay_snapshot
+
+    env_kwargs = json.loads(args.env_kwargs) if args.env_kwargs else None
+    if args.seeds:
+        noise_table = None
+        if args.noise_count:
+            from .device import resolve_device
+            from .ops.noise import NoiseTable
+
+            noise_table = NoiseTable.from_seed(count=args.noise_count, device=resolve_device(args.device))
+        stats = replay_seed_chain(
+            json.loads(args.seeds), model_name=args.model, env_id=args.env or "maze",
+            model_kwargs=json.loads(args.model_kwargs) if args.model_kwargs else None,
+            genome_style=args.genome_style, noise_stdev=args.noise_stdev, noise_table=noise_table,
+            episodes=args.episodes, save_frames=args.save_frames, seed=args.seed, env_kwargs=env_kwargs,
+            device=args.device,
+        )
+    else:
+        if not args.snapshot:
+            print("replay: provide --snapshot or --seeds", file=sys.stderr)
+            return 2
+        stats = replay_snapshot(args.snapshot, env_id=args.env, episodes=args.episodes, save_frames=args.save_frames,
+                                seed=args.seed, env_kwargs=env_kwargs, device=args.device)
+    print(json.dumps(stats), flush=True)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="deep_neuroevolution_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -188,17 +229,33 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--device", default=None, help="cuda (default) or cpu")
     t.add_argument("--profile_dir", default="", help="torch.profiler trace of the last generation → this dir")
     t.set_defaults(fn=cmd_train)
+
+    r = sub.add_parser("replay", help="roll out a policy file or a seed-chain elite (scripts/viz.py, display.py)")
+    r.add_argument("--snapshot", default=None, help="policy file of either package")
+    r.add_argument("--env", default=None, help="env id (default: the file's, else maze)")
+    r.add_argument("--episodes", type=int, default=1)
+    r.add_argument("--save_frames", default="", help="write the returns, lengths and trajectory .npz here")
+    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--env_kwargs", help='env JSON, e.g. \'{"batch_size": 8}\'')
+    r.add_argument("--seeds", help='genome JSON, e.g. "[123, [456, 0.002]]" (gpu) or "[123, 456]" (cpu)')
+    r.add_argument("--model", default="ContinuousMLP", help="model registry name for --seeds")
+    r.add_argument("--model_kwargs", help="model constructor JSON for --seeds")
+    r.add_argument("--genome_style", choices=["gpu", "cpu"], default="gpu")
+    r.add_argument("--noise_stdev", type=float, default=0.002, help="a CPU-style chain's mutation stdev")
+    r.add_argument("--noise_count", type=int, default=0, help="noise table size (0: the reference's 250M)")
+    r.add_argument("--device", default=None, help="cuda (default) or cpu")
+    r.set_defaults(fn=cmd_replay)
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        args.fn(args)
+        rc = args.fn(args)
     except NoCudaDevice as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    return 0
+    return rc if isinstance(rc, int) else 0  # train returns its trainer
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 CPU stack by its "policy" type, es_distributed/es.py:136)."""
 
 from .core import NONLINS, Model, dense  # noqa: F401
-from .batchnorm import VirtualBNDQN  # noqa: F401
+from .batchnorm import BNDQN, VirtualBNDQN  # noqa: F401
 from .dqn import LargeDQN, LargeDQNXavier, SmallDQN, SmallDQNXavier  # noqa: F401
 from .mlp import MLPContext, MujocoMLP, default_context  # noqa: F401
 from .simple import ContinuousMLP, LinearClassifier, SimpleClassifier  # noqa: F401
@@ -15,6 +15,7 @@ REGISTRY = {
     "SmallDQN": SmallDQNXavier,
     "LargeDQN": LargeDQNXavier,
     "ModelVirtualBN": VirtualBNDQN,  # gpu_implementation es_atari_config.json
+    "ModelBN": BNDQN,  # gpu neuroevolution/models/batchnorm.py:24-49
     "LinearClassifier": LinearClassifier,
     "SimpleClassifier": SimpleClassifier,
     "ContinuousMLP": ContinuousMLP,
@@ -24,6 +25,7 @@ REGISTRY = {
     "GAAtariPolicy": SmallDQN,
     # class names
     "VirtualBNDQN": VirtualBNDQN,
+    "BNDQN": BNDQN,
     "SmallDQNXavier": SmallDQNXavier,
     "LargeDQNXavier": LargeDQNXavier,
 }

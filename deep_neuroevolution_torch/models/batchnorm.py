@@ -1,4 +1,5 @@
-"""Virtual-batch-norm small DQN (ModelVirtualBN): the ES path's policy.
+"""Virtual-batch-norm small DQN (ModelVirtualBN), the ES path's policy, and
+its live batch-norm variant (ModelBN).
 
 The counterpart of the JAX package's models/batchnorm.py ``VirtualBNDQN``
 (the GPU stack's ModelVirtualBN, gpu neuroevolution/models/batchnorm.py:
@@ -32,9 +33,22 @@ output to the compute dtype (the reference-batch pass), the port rounds it
 too. The fused routes take bfloat16 weights whatever ``compute_dtype``
 says, as in the JAX package.
 
-``nonlin_type`` takes only 'relu'. Not ported yet: other nonlinearities,
-input sizes other than 84×84×4, ``prepare_batch_params_chunked`` and
-BNDQN.
+The fields are the JAX package's (batchnorm.py:47-52): ``in_hw``,
+``in_ch``, ``nonlin_type`` (any of ``NONLINS``, after each normalization)
+and ``out_std`` (the out layer's normc scale); ``LAYERS`` and ``FC`` stay
+fixed per class, as there. K4 and K6 are written for relu on 84×84×4
+frames: a forced fused route on any other model raises ``ValueError`` when
+the model is built, and 'auto' never takes them. (The JAX package's
+``_fused_eligible``, batchnorm.py:283-289, does not look at the
+nonlinearity: its fused kernels apply relu whatever ``nonlin_type`` says.)
+
+``BNDQN`` (ModelBN, the JAX package's batchnorm.py:425-461) normalizes by
+live moments instead: each member's batch is its one env slot, so a conv's
+moments are taken over the spatial axes, and the fc's, at a batch of one,
+over its features (the layer is centred by itself). No reference batch,
+no fused route; its products are plain batched products in float32 (the
+JAX package vmaps them, with no Pallas kernel), the weights rounded to the
+compute dtype first.
 """
 
 from __future__ import annotations
@@ -47,7 +61,7 @@ import torch.nn.functional as F
 
 from ..ops import fused_dqn as fk
 from ..ops.flat import ParamSpec
-from .core import Model, batch_conv2d, check_relu, extract_patches, pop_matvec
+from .core import NONLINS, Model, batch_conv2d, extract_patches, pop_matvec
 
 VBN_EPS = 1e-3  # batchnorm.py:76; policies.py:322 epsilon=1e-3
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -75,11 +89,11 @@ class VirtualBNDQN(Model):
     affine: str = "bias"  # 'bias' (GPU ModelVirtualBN) | 'full' (CPU ESAtariPolicy γ/β)
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
     forward_impl: str = "auto"  # see the module docstring
-    nonlin_type: str = "relu"  # the only one ported (ROADMAP Queue 1 item 6)
+    nonlin_type: str = "relu"  # a NONLINS name
+    in_hw: int = 84  # input frames [in_hw, in_hw, in_ch]
+    in_ch: int = 4
+    out_std: float = 1.0  # batchnorm.py:110 dense('out') default std
 
-    IN_HW: ClassVar[int] = 84  # input frames [84, 84, 4]
-    IN_CH: ClassVar[int] = 4
-    OUT_STD: ClassVar[float] = 1.0  # batchnorm.py:110 dense('out') default std
     LAYERS: ClassVar[Tuple[Tuple[str, int, int, int], ...]] = (("conv1", 16, 8, 4), ("conv2", 32, 4, 2))
     FC: ClassVar[int] = 256
     # members whose reference-batch forwards are live at once in
@@ -93,9 +107,10 @@ class VirtualBNDQN(Model):
             raise ValueError(f"affine must be 'bias' or 'full', not {self.affine!r}")
         if self.forward_impl not in _FORWARD_IMPLS:
             raise ValueError(f"forward_impl must be one of {_FORWARD_IMPLS}, not {self.forward_impl!r}")
+        if self.nonlin_type not in NONLINS:
+            raise ValueError(f"nonlin_type must be one of {sorted(NONLINS)}, not {self.nonlin_type!r}")
         if self._use_fused() and not 0 < self.num_actions <= fk.NOUT:
             raise ValueError(f"forward_impl={self.forward_impl!r} takes 1 to {fk.NOUT} actions, not {self.num_actions}")
-        check_relu(self)
         super().__post_init__()
 
     @property
@@ -108,7 +123,7 @@ class VirtualBNDQN(Model):
 
     def build_specs(self) -> Sequence[ParamSpec]:
         specs = []
-        hw, ch = self.IN_HW, self.IN_CH
+        hw, ch = self.in_hw, self.in_ch
         for name, out_ch, k, s in self.LAYERS:
             specs.append(ParamSpec(f"{name}/w", (k, k, ch, out_ch), "normc", 1.0))
             specs.append(ParamSpec(f"{name}/bn_b", (out_ch,), "zeros"))
@@ -120,7 +135,7 @@ class VirtualBNDQN(Model):
         if self.affine == "full":
             specs.append(ParamSpec("fc/bn_g", (self.FC,), "zeros"))
         specs += [
-            ParamSpec("out/w", (self.FC, self.num_actions), "normc", self.OUT_STD),
+            ParamSpec("out/w", (self.FC, self.num_actions), "normc", self.out_std),
             ParamSpec("out/b", (self.num_actions,), "zeros"),
         ]
         return specs
@@ -154,6 +169,7 @@ class VirtualBNDQN(Model):
         """Moments of C members' forwards of the reference batch ``[R, H, W,
         Cin]``: over (batch, h, w) for the convs, over batch for the fc."""
         dt = self.dtype
+        nonlin = NONLINS[self.nonlin_type]
         parts = self.prepare_parts(self.unflatten(thetas))
         C, R = thetas.shape[0], ref_batch.shape[0]
         means, inv_stds = [], []
@@ -173,7 +189,7 @@ class VirtualBNDQN(Model):
             mean, inv = _moments(h, 1)
             means.append(mean)
             inv_stds.append(inv)
-            x = torch.relu(self._normalize(parts, name, h, mean, inv)).to(dt)
+            x = nonlin(self._normalize(parts, name, h, mean, inv)).to(dt)
             x = x.reshape((C, R) + tuple(hw) + (cout,))
         h = torch.bmm(x.reshape(C, R, -1).float(), parts["fc/w"].float()).to(dt).float()
         mean, inv = _moments(h, 1)
@@ -198,14 +214,15 @@ class VirtualBNDQN(Model):
         if ctx is None:
             raise ValueError("VirtualBNDQN needs the members' reference-batch stats")
         dt = self.dtype
+        nonlin = NONLINS[self.nonlin_type]
         B = obs.shape[0]
         x = obs.to(dt)
         for i, (name, _, _, s) in enumerate(self.LAYERS):
             h = batch_conv2d(parts[f"{name}/w"], x, stride=s)
-            x = torch.relu(self._normalize(parts, name, h, ctx.mean[i], ctx.inv_std[i])).to(dt)
+            x = nonlin(self._normalize(parts, name, h, ctx.mean[i], ctx.inv_std[i])).to(dt)
         h = pop_matvec(x.reshape(B, -1), parts["fc/w"])
         i = len(self.LAYERS)
-        x = torch.relu(self._normalize(parts, "fc", h, ctx.mean[i], ctx.inv_std[i]))
+        x = nonlin(self._normalize(parts, "fc", h, ctx.mean[i], ctx.inv_std[i]))
         return torch.einsum("bk,bkn->bn", x, parts["out/w"].float()) + parts["out/b"]
 
     # ------------------------------------------------------------- routes
@@ -215,9 +232,9 @@ class VirtualBNDQN(Model):
 
     def _fused_eligible(self) -> bool:
         """K4 and K6 are written for the reference topology, 84×84×4 →
-        conv16/8s4 → conv32/4s2 → fc256 (batchnorm.py:283-289)."""
+        conv16/8s4 → conv32/4s2 → fc256 (batchnorm.py:283-289), with relu."""
         return (
-            (self.IN_HW, self.IN_CH, self.FC) == (84, 4, fk.FC)
+            (self.in_hw, self.in_ch, self.FC, self.nonlin_type) == (84, 4, fk.FC, "relu")
             and self.LAYERS == (("conv1", fk.C1, 8, 4), ("conv2", fk.C2, 4, 2))
         )
 
@@ -226,7 +243,8 @@ class VirtualBNDQN(Model):
         ``'auto'`` stays on the split route (batchnorm.py:291-302)."""
         if self.forward_impl in ("fused", "fused1"):
             if not self._fused_eligible():
-                raise ValueError("the fused VBN-DQN kernels need the reference topology")
+                raise ValueError(f"forward_impl={self.forward_impl!r}: the fused VBN-DQN kernels need relu on "
+                                 f"84×84×4 frames, not {self.nonlin_type} on {self.in_hw}×{self.in_hw}×{self.in_ch}")
             return self.forward_impl
         return False
 
@@ -257,14 +275,15 @@ class VirtualBNDQN(Model):
 
     def batch_scores_folded(self, fparts, obs: torch.Tensor) -> torch.Tensor:
         """Scores ``[B, A]`` over folded weights: the split route's products
-        with a bias and relu after each (batchnorm.py:253-268)."""
+        with a bias and the nonlinearity after each (batchnorm.py:253-268)."""
         dt = self.dtype
+        nonlin = NONLINS[self.nonlin_type]
         B = obs.shape[0]
         x = obs.to(dt)
         for name, _, _, s in self.LAYERS:
             h = batch_conv2d(fparts[f"{name}/w"], x, stride=s)
-            x = torch.relu(h + fparts[f"{name}/b"][:, None, None, :]).to(dt)
-        x = torch.relu(pop_matvec(x.reshape(B, -1), fparts["fc/w"]) + fparts["fc/b"])
+            x = nonlin(h + fparts[f"{name}/b"][:, None, None, :]).to(dt)
+        x = nonlin(pop_matvec(x.reshape(B, -1), fparts["fc/w"]) + fparts["fc/b"])
         return torch.einsum("bk,bkn->bn", x, fparts["out/w"].float()) + fparts["out/b"]
 
     def fuse_prepare(self, parts, stats: VBNStats, style: str = "two") -> Dict[str, torch.Tensor]:
@@ -333,3 +352,34 @@ class VirtualBNDQN(Model):
         if "__folded__" in parts:
             return torch.argmax(self.batch_scores_folded(parts["__folded__"], obs), dim=-1)
         return torch.argmax(self.batch_scores_parts(parts, obs, ctx), dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BNDQN(VirtualBNDQN):
+    """Live batch norm (ModelBN, batchnorm.py:24-49; the JAX package's
+    batchnorm.py:425-461): see the module docstring. ``forward_impl`` takes
+    'auto' or 'split', the one route."""
+
+    def __post_init__(self):
+        if self.forward_impl not in ("auto", "split"):
+            raise ValueError(f"BNDQN has one route, the split one; forward_impl={self.forward_impl!r}")
+        super().__post_init__()
+
+    @property
+    def needs_ref_batch(self) -> bool:
+        return False
+
+    def batch_scores_parts(self, parts, obs: torch.Tensor, ctx=None) -> torch.Tensor:
+        """``[B, H, W, C]`` frames → action scores ``[B, A]`` float32, each
+        member normalized by its own moments."""
+        nonlin = NONLINS[self.nonlin_type]
+        B = obs.shape[0]
+        x = obs.float()
+        for name, _, _, s in self.LAYERS:
+            h = batch_conv2d(parts[f"{name}/w"], x, stride=s)
+            mean, inv = _moments(h, (1, 2))
+            x = nonlin(self._normalize(parts, name, h, mean, inv))
+        h = torch.bmm(x.reshape(B, 1, -1), parts["fc/w"].float())[:, 0]
+        mean, inv = _moments(h, 1)  # a batch of one: the layer centred by itself
+        x = nonlin(self._normalize(parts, "fc", h, mean[:, None].expand_as(h), inv[:, None].expand_as(h)))
+        return torch.bmm(x[:, None, :], parts["out/w"].float())[:, 0] + parts["out/b"]

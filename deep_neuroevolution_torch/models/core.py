@@ -85,13 +85,31 @@ NONLINS = {
 }
 
 
-def check_relu(model) -> None:
-    """The DQN family's ``nonlin_type``: the fused kernels and the port's
-    forwards are written for relu, the only value ported."""
-    if model.nonlin_type != "relu":
-        raise NotImplementedError(
-            f"{type(model).__name__}: nonlin_type={model.nonlin_type!r} is not ported; the port's DQNs take "
-            "'relu' only (ROADMAP Queue 1 item 6)")
+def _map_tensors(fn, tree):
+    """``fn`` on every tensor of nested dicts, tuples and NamedTuples."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        mapped = [_map_tensors(fn, v) for v in tree]
+        return type(tree)(*mapped) if hasattr(tree, "_fields") else tuple(mapped)
+    return tree
+
+
+def _slice_members(ctx, B: int, s: int, e: int):
+    """Members ``[s, e)`` of every context tensor whose leading axis is the
+    population's ``B``; other leaves pass through."""
+    return _map_tensors(lambda x: x[s:e] if x.ndim and x.shape[0] == B else x, ctx)
+
+
+def _copy_into(out, part, s: int) -> None:
+    """``out[...][s : s + n] = part[...]`` through nested dicts."""
+    if isinstance(out, dict):
+        for k, v in out.items():
+            _copy_into(v, part[k], s)
+    else:
+        out[s : s + part.shape[0]].copy_(part)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +161,31 @@ class Model:
         if isinstance(thetas, dict):
             return params
         return self.prepare_parts(self.unflatten(thetas)), ctx
+
+    def prepare_batch_params_chunked(self, params, chunk: int):
+        """``prepare_batch_params`` ``chunk`` members at a time (the JAX
+        package's core.py:230-263). Each chunk's prepared parts are copied
+        into full-size outputs, allocated after the first chunk; the result
+        equals the whole prepare's. It bounds memory only where the compute
+        dtype makes copies (bfloat16: the whole prepare holds the float32
+        parts and their copies at once, the chunked one O(chunk·D) of the
+        former). In float32 the whole prepare makes no copy, and the chunked
+        one costs a full-size output more (chip_smoke.py phase 24 prints
+        both peaks). Context leaves with a leading member axis are sliced
+        alongside."""
+        thetas, ctx = params
+        if isinstance(thetas, dict):
+            return params
+        B = thetas.shape[0]
+        if chunk >= B:
+            return self.prepare_batch_params(params)
+        out = None
+        for s in range(0, B, chunk):
+            part, _ = self.prepare_batch_params((thetas[s : s + chunk], _slice_members(ctx, B, s, s + chunk)))
+            if out is None:
+                out = _map_tensors(lambda x: x.new_empty((B,) + tuple(x.shape[1:])), part)
+            _copy_into(out, part, s)
+        return out, ctx
 
     def batch_act_parts(self, parts, obs: torch.Tensor, ctx) -> torch.Tensor:
         """Population action selection from stacked parts → actions ``[B]``."""

@@ -7,9 +7,11 @@ gpu neuroevolution/models/dqn.py:30-47, and their Xavier-scaled variants
 
     conv1 k8 s4 → conv2 k4 s2 [→ conv3 k3 s1 (large)] → flatten → fc → out
 
-on 84×84×4 frames. ``nonlin_type`` is a field, as in the JAX package, but
-takes only 'relu'; its other input sizes and out-layer scales (``in_hw``,
-``out_std``) are not ported: they are class constants here.
+on ``in_hw``×``in_hw``×``in_ch`` frames (84×84×4 by default). The fields
+are the JAX package's (dqn.py:37-45): ``in_hw``, ``in_ch``, ``nonlin_type``
+(any of ``NONLINS``, after every layer but the out layer) and ``out_std``
+(the out layer's normc scale, the CPU stack's ``ac_init_std``); ``LAYERS``
+and ``FC`` stay fixed per class, as there.
 
 θ has the JAX package's flat layout (``build_specs`` order), so a θ moves
 between the packages unchanged (weights.from_jax). The action is the argmax
@@ -20,13 +22,21 @@ Population forward routes:
 * split (``batch_scores_parts``): the convs as batched products over im2col
   patches (``conv_impl='einsum'``, plain torch) or through kernel K5
   (``conv_impl='fused'``, ops/fused_dqn.py); the fc through ``pop_matvec``
-  (kernel K1 on a CUDA tensor); the out layer in f32. ``conv_impl='auto'``
-  stays on the batched products, as in the JAX package (dqn.py:128-133).
+  (kernel K1 on a CUDA tensor, whatever the nonlinearity); the out layer in
+  f32. ``conv_impl='auto'`` stays on the batched products, as in the JAX
+  package (dqn.py:128-133).
 * LargeDQN whole-net (``forward_impl``): ``'fused'`` runs kernel K3 on the
   ``fuse_prepare`` layout, ``'split'`` the split route, and ``'auto'`` K3
   when θ lies on a CUDA device and the topology is the reference's, else the
   split route (the JAX package's "fused iff on TPU", dqn.py:208-216),
   for up to 64 actions.
+
+K5 and K3 are written for the reference topology with relu on 84×84×4
+frames (the JAX package's ``_conv_fused_eligible`` and
+``_whole_fused_eligible``, dqn.py:107-115, 200-206): any other model takes
+the split route on 'auto' (so a tanh LargeDQN runs K1 where the relu one
+runs K3), and a forced ``'fused'`` raises ``ValueError`` when the model is
+built.
 
 ``compute_dtype='bfloat16'`` casts the parameters to bf16 once per rollout
 (``prepare_parts``); sums stay f32.
@@ -42,7 +52,7 @@ import torch.nn.functional as F
 
 from ..ops import fused_dqn as fk
 from ..ops.flat import ParamSpec
-from .core import Model, batch_conv2d, check_relu, extract_patches, pop_matvec
+from .core import NONLINS, Model, batch_conv2d, extract_patches, pop_matvec
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -59,11 +69,11 @@ class SmallDQN(Model):
     scale_style: str = "fan_in"  # genome scaling: dqn.py:26-28
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
     conv_impl: str = "auto"  # 'auto' | 'fused' (K5) | 'einsum'
-    nonlin_type: str = "relu"  # the only one ported (ROADMAP Queue 1 item 6)
+    nonlin_type: str = "relu"  # a NONLINS name
+    in_hw: int = 84  # input frames [in_hw, in_hw, in_ch]
+    in_ch: int = 4
+    out_std: float = 0.1  # dqn.py:40 out std; GAAtariPolicy's ac_init_std default (policies.py:436)
 
-    IN_HW: ClassVar[int] = 84  # input frames [84, 84, 4]
-    IN_CH: ClassVar[int] = 4
-    OUT_STD: ClassVar[float] = 0.1  # dqn.py:40 out std
     LAYERS: ClassVar[Tuple[Tuple[str, int, int, int], ...]] = (("conv1", 16, 8, 4), ("conv2", 32, 4, 2))
     FC: ClassVar[int] = 256
 
@@ -72,8 +82,16 @@ class SmallDQN(Model):
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
         if self.conv_impl not in ("auto", "fused", "einsum"):
             raise ValueError(f"conv_impl must be 'auto', 'fused' or 'einsum', not {self.conv_impl!r}")
-        check_relu(self)
+        if self.nonlin_type not in NONLINS:
+            raise ValueError(f"nonlin_type must be one of {sorted(NONLINS)}, not {self.nonlin_type!r}")
+        if self.conv_impl == "fused" and not self._reference_input():
+            raise ValueError("conv_impl='fused' (K5) needs relu on 84×84×4 frames, not "
+                             f"{self.nonlin_type} on {self.in_hw}×{self.in_hw}×{self.in_ch}")
         super().__post_init__()
+
+    def _reference_input(self) -> bool:
+        """The fused kernels' reference: relu on 84×84×4 frames (dqn.py:107-115)."""
+        return (self.in_hw, self.in_ch, self.nonlin_type) == (84, 4, "relu")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -81,7 +99,7 @@ class SmallDQN(Model):
 
     def build_specs(self) -> Sequence[ParamSpec]:
         specs = []
-        hw, ch = self.IN_HW, self.IN_CH
+        hw, ch = self.in_hw, self.in_ch
         for name, out_ch, k, s in self.LAYERS:
             specs += [
                 ParamSpec(f"{name}/w", (k, k, ch, out_ch), "normc", 1.0),
@@ -91,7 +109,7 @@ class SmallDQN(Model):
         specs += [
             ParamSpec("fc/w", (hw * hw * ch, self.FC), "normc", 1.0),
             ParamSpec("fc/b", (self.FC,), "zeros"),
-            ParamSpec("out/w", (self.FC, self.num_actions), "normc", self.OUT_STD),
+            ParamSpec("out/w", (self.FC, self.num_actions), "normc", self.out_std),
             ParamSpec("out/b", (self.num_actions,), "zeros"),
         ]
         return specs
@@ -116,7 +134,7 @@ class SmallDQN(Model):
         return args
 
     def conv_acts(self, parts, obs: torch.Tensor) -> torch.Tensor:
-        """The conv stack's flattened activations ``[B, 121·c_out]`` in the
+        """The conv stack's flattened activations ``[B, h·w·c_out]`` in the
         compute dtype: K5 with ``conv_impl='fused'``, else batched products
         over im2col patches."""
         dt = self.dtype
@@ -124,19 +142,20 @@ class SmallDQN(Model):
         # 'auto' stays on the batched products, as in the JAX package
         if self.conv_impl == "fused":
             return fk.dqn_conv_chain_fused(*self.conv_chain_args(parts, obs)).to(dt).reshape(B, -1)
+        nonlin = NONLINS[self.nonlin_type]
         x = obs.to(dt)
         for name, _, _, s in self.LAYERS:
             y = batch_conv2d(parts[f"{name}/w"], x, stride=s) + parts[f"{name}/b"].float()[:, None, None, :]
-            x = torch.relu(y).to(dt)
+            x = nonlin(y).to(dt)
         return x.reshape(B, -1)
 
     # --------------------------------------------------------------- forward
 
     def batch_scores_parts(self, parts, obs: torch.Tensor, ctx=None) -> torch.Tensor:
-        """``[B, 84, 84, 4]`` frames → action scores ``[B, A]`` f32: the convs,
-        the fc through ``pop_matvec`` (K1), the out layer in f32."""
+        """``[B, in_hw, in_hw, in_ch]`` frames → action scores ``[B, A]`` f32:
+        the convs, the fc through ``pop_matvec`` (K1), the out layer in f32."""
         h = pop_matvec(self.conv_acts(parts, obs), parts["fc/w"]) + parts["fc/b"].float()
-        x = torch.relu(h)
+        x = NONLINS[self.nonlin_type](h)
         return torch.einsum("bk,bkn->bn", x, parts["out/w"].float()) + parts["out/b"].float()
 
     def batch_act_parts(self, parts, obs, ctx=None):
@@ -163,14 +182,21 @@ class LargeDQN(SmallDQN):
         if self.forward_impl not in ("auto", "fused", "split"):
             raise ValueError(f"forward_impl must be 'auto', 'fused' or 'split', not {self.forward_impl!r}")
         super().__post_init__()
+        if self.forward_impl == "fused" and not self._reference_input():
+            raise ValueError("forward_impl='fused' (K3) needs relu on 84×84×4 frames, not "
+                             f"{self.nonlin_type} on {self.in_hw}×{self.in_hw}×{self.in_ch}")
+
+    def _whole_fused_eligible(self) -> bool:
+        """K3's reference topology with relu, and up to 64 actions (its
+        padded action lanes; dqn.py:200-206)."""
+        return self._reference_input() and 0 < self.num_actions <= fk.NOUT
 
     def _use_whole_fused(self, device: torch.device) -> bool:
-        eligible = 0 < self.num_actions <= fk.NOUT  # K3's padded action lanes
         if self.forward_impl == "fused":
-            if not eligible:
+            if not 0 < self.num_actions <= fk.NOUT:
                 raise ValueError(f"forward_impl='fused' takes at most {fk.NOUT} actions, not {self.num_actions}")
             return True
-        return self.forward_impl == "auto" and eligible and device.type == "cuda"
+        return self.forward_impl == "auto" and self._whole_fused_eligible() and device.type == "cuda"
 
     def fuse_prepare(self, parts) -> Dict[str, torch.Tensor]:
         """K3's weight layout (dqn.py:218-248) from compute-dtype parts

@@ -8,13 +8,17 @@ The counterpart of the JAX package's ops/fitness.py:28-100:
   packages.
 * ``process_returns`` — the modes of es.py:281-288.
 * ``gradient_from_noise`` — g = Σᵢ wᵢ·table[idxᵢ : idxᵢ+dim], streamed in
-  chunks of rows so the ``[n, dim]`` noise matrix never exists. It is the
-  plain version of the CUDA kernel in ops/noise_gradient.py.
+  chunks of rows so the ``[n, dim]`` noise matrix never exists. On a table
+  it is the plain version of the CUDA kernel in ops/noise_gradient.py; on a
+  ``VirtualNoise`` it regenerates the rows, ``chunk`` at a time, as the JAX
+  package's does (fitness.py:75-105), and no kernel takes part.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .noise import noise_rows
 
 
 def compute_ranks(x: torch.Tensor) -> torch.Tensor:
@@ -45,21 +49,20 @@ def process_returns(returns: torch.Tensor, signreturns: torch.Tensor, mode: str)
 
 
 def gradient_from_noise(
-    table: torch.Tensor,  # [N] f32 noise table
-    idxs: torch.Tensor,  # [n] int start offsets
+    table,  # [N] f32 noise table tensor, or a noise source (ops/noise.py)
+    idxs: torch.Tensor,  # [n] int start offsets (stream ids for a VirtualNoise)
     weights: torch.Tensor,  # [n] f32 per-pair weights (w⁺ − w⁻)
     dim: int,
     chunk: int = 256,
 ) -> torch.Tensor:
-    """g = Σᵢ wᵢ·table[idxᵢ : idxᵢ+dim] in f32, ``chunk`` rows at a time
-    (peak memory chunk·dim·4 bytes instead of n·dim·4)."""
-    if table.ndim != 1 or table.shape[0] < dim:
+    """g = Σᵢ wᵢ·εᵢ in f32, ``chunk`` rows at a time (peak memory
+    chunk·dim·4 bytes instead of n·dim·4), on the source's device; εᵢ is
+    ``noise_rows(table, idxᵢ)``: ``table[idxᵢ : idxᵢ+dim]``, or a
+    VirtualNoise's row regenerated."""
+    if isinstance(table, torch.Tensor) and table.ndim != 1:
         raise ValueError(f"table must be 1-D with at least dim={dim} entries")
-    rows_view = table.as_strided((table.shape[0] - dim + 1, dim), (1, 1))
-    idxs = idxs.to(device=table.device, dtype=torch.int64)
     weights = weights.to(device=table.device, dtype=torch.float32)
     g = torch.zeros(dim, dtype=torch.float32, device=table.device)
     for s in range(0, idxs.shape[0], chunk):
-        rows = rows_view[idxs[s : s + chunk]]  # [c, dim] gather
-        g += weights[s : s + chunk] @ rows
+        g += weights[s : s + chunk] @ noise_rows(table, idxs[s : s + chunk], dim)
     return g

@@ -6,9 +6,11 @@ each later entry an (index, power) mutation, and
 
     θ₀ = ε(idx₀)·scale_by,   θ ← θ + powerₖ·ε(idxₖ),
 
-with ε(i) = table[i : i + D]. A population of chains is one ``[P, L]``
-index array and one ``[P, L]`` power array, padded with (0, 0) entries,
-which add 0·ε = 0.
+with ε(i) = table[i : i + D], or row i of a ``VirtualNoise`` (ops/noise.py
+``noise_rows``; every function here takes a table tensor or either
+source). A population of
+chains is one ``[P, L]`` index array and one ``[P, L]`` power array, padded
+with (0, 0) entries, which add 0·ε = 0.
 
 CPU-style chains (es_distributed/ga.py:250-264) are bare indices:
 θ₀ = reinit(ε(idx₀)), the model's normalized-column re-init
@@ -34,7 +36,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .noise import noise_rows
+from .noise import noise_row, noise_rows
 
 
 _CHUNK = 1 << 24  # elements per float64 pass of mutate_ (128 MB of float64)
@@ -56,7 +58,7 @@ def mutate_(theta: torch.Tensor, power, eps: torch.Tensor) -> torch.Tensor:
 
 
 def reconstruct_gpu_style(
-    table: torch.Tensor,  # [count] noise table
+    table,  # [count] noise table tensor, a NoiseTable or a VirtualNoise
     chain_idxs: torch.Tensor,  # [L] int; entry 0 = init index
     chain_powers: torch.Tensor,  # [L] f32; entry 0 ignored, 0 = padding
     dim: int,
@@ -67,7 +69,7 @@ def reconstruct_gpu_style(
 
 
 def reconstruct_gpu_style_batch(
-    table: torch.Tensor,
+    table,
     chains_idxs: torch.Tensor,  # [P, L]
     chains_powers: torch.Tensor,  # [P, L]
     dim: int,
@@ -84,24 +86,22 @@ def reconstruct_gpu_style_batch(
     return theta
 
 
-def extend(theta_parent: torch.Tensor, table: torch.Tensor, idx: int, power: float, dim: int) -> torch.Tensor:
+def extend(theta_parent: torch.Tensor, table, idx: int, power: float, dim: int) -> torch.Tensor:
     """One mutation from a cached parent θ (base.py:148-156)."""
-    eps = noise_rows(table, torch.tensor([int(idx)]), dim)[0]
-    return mutate_(theta_parent.clone(), power, eps)
+    return mutate_(theta_parent.clone(), power, noise_row(table, idx, dim))
 
 
 def reconstruct_cpu_style(
-    table: torch.Tensor, chain: Sequence[int], dim: int, reinit, noise_stdev: float
+    table, chain: Sequence[int], dim: int, reinit, noise_stdev: float
 ) -> torch.Tensor:
     """θ ``[D]`` of a CPU-style chain ``(idx₀, idx, ...)``: ``reinit`` (the
     model's ``reinit_theta``) of ε(idx₀), then θ + σ·ε(idx) for each later
     index, σ·ε and the sum each rounded to f32 (the JAX package's
     algos/ga.py:309-311 and utils/checkpoint.py:93-95)."""
-    row = lambda i: noise_rows(table, torch.tensor([int(i)]), dim)[0]  # noqa: E731
     sigma = float(np.float32(noise_stdev))
-    theta = reinit(row(chain[0]))
+    theta = reinit(noise_row(table, chain[0], dim))
     for idx in chain[1:]:
-        theta = theta + row(idx) * sigma
+        theta = theta + noise_row(table, idx, dim) * sigma
     return theta
 
 

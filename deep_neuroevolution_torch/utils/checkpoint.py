@@ -12,12 +12,12 @@ JAX package's dict of plain values:
 * ``theta``: the flat θ as float32 numpy, in the layout both packages share
   (ops/flat.py);
 * ``model_class`` and ``model_kwargs``: the class name and its constructor
-  arguments under the JAX package's field names. The port fixes some of
-  those fields as class constants (the DQNs' ``in_hw``, ``in_ch``,
-  ``out_std``, ``LAYERS``, ``FC``, the VBN-DQN's ``scale_style``) and
-  takes only relu as the DQNs' ``nonlin_type``; it writes their values,
-  and reads a file only where they equal its own. It ignores the JAX
-  package's TPU-only knobs (``matvec_impl``, ``fused_interpret``);
+  arguments under the JAX package's field names (the DQNs' ``in_hw``,
+  ``in_ch``, ``out_std`` and ``nonlin_type`` among them). The port fixes a
+  few of those fields per class (the DQNs' ``LAYERS`` and ``FC``, the
+  VBN-DQN's ``scale_style``); it writes their values, and reads a file only
+  where they equal its own. It ignores the JAX package's TPU-only knobs
+  (``matvec_impl``, ``fused_interpret``);
 * ``ob_stat``: a plain ``(sum, sumsq, count)`` tuple of numpy arrays;
 * ``ref_batch`` (numpy) and ``extra`` (a dict).
 
@@ -59,9 +59,9 @@ from ..ops.optim import AdamState, SGDState
 
 FORMAT = "deep_neuroevolution_torch.trainer/1"  # the port's trainer snapshots
 
-# the JAX package's model fields that the port fixes as class constants
-# (ROADMAP Queue 1 item 6): field → the port class's attribute
-_CONSTANT_ATTRS = {"in_hw": "IN_HW", "in_ch": "IN_CH", "out_std": "OUT_STD", "LAYERS": "LAYERS", "FC": "FC"}
+# the JAX package's model fields that the port fixes per class (they keep
+# their defaults in every JAX model too): field → the port class's attribute
+_CONSTANT_ATTRS = {"LAYERS": "LAYERS", "FC": "FC"}
 # fixed values of JAX fields that a port class lacks
 _CONSTANT_VALUES = {"scale_style": "fan_in"}
 # the JAX package's TPU-only knobs, written with their defaults, ignored on reading
@@ -142,7 +142,7 @@ def model_kwargs(model) -> Dict[str, Any]:
     """The JAX package's constructor arguments for the port's ``model``:
     its fields, plus the fields the port fixes, at the port's values."""
     kw = dataclasses.asdict(model)
-    if hasattr(type(model), "IN_HW"):  # the DQN family
+    if hasattr(type(model), "LAYERS"):  # the DQN family
         kw.update({field: getattr(type(model), attr) for field, attr in _CONSTANT_ATTRS.items()})
         for field, value in {**_CONSTANT_VALUES, **_TPU_ONLY}.items():
             kw.setdefault(field, value)
@@ -172,10 +172,9 @@ def model_from(class_name: str, kwargs: Dict[str, Any]):
             want = getattr(cls, _CONSTANT_ATTRS[k]) if k in _CONSTANT_ATTRS else _CONSTANT_VALUES[k]
             if v != want:
                 raise NotImplementedError(
-                    f"{class_name}: {k}={v!r} is not ported; the port fixes {k} = {want!r} "
-                    "(ROADMAP Queue 1 item 6)")
+                    f"{class_name}: {k}={v!r} is not ported; the port fixes {k} = {want!r} per class")
         else:
-            raise NotImplementedError(f"{class_name}: field {k!r} is not ported (ROADMAP Queue 1 item 6)")
+            raise NotImplementedError(f"{class_name}: field {k!r} is not ported")
     return cls(**own)
 
 
@@ -216,7 +215,8 @@ def load_policy_snapshot(path: str, device=None):
 
 
 def theta_from_seed_chain(model, noise_table, seeds, genome_style: str = "gpu", noise_stdev: float = 0.002):
-    """Flat θ of a seed chain, on the table's device (SURVEY §3.4):
+    """Flat θ of a seed chain, on the source's device (SURVEY §3.4); the
+    source is a ``NoiseTable`` or a ``VirtualNoise``:
     GPU-style ``[init_idx, (idx, power), ...]`` (base.py:139-145), bit for
     bit the JAX package's, a bare index after the first adding nothing
     (power 0) as there; or CPU-style bare indices
@@ -228,13 +228,12 @@ def theta_from_seed_chain(model, noise_table, seeds, genome_style: str = "gpu", 
     dim = model.num_params
     if noise_table.size <= dim:
         raise ValueError(f"noise table ({noise_table.size}) must exceed num_params ({dim})")
-    table = noise_table.noise
     if genome_style == "cpu":
-        return genome.reconstruct_cpu_style(table, seeds, dim, model.reinit_theta, noise_stdev)
+        return genome.reconstruct_cpu_style(noise_table, seeds, dim, model.reinit_theta, noise_stdev)
     idxs = torch.tensor([int(s[0]) if isinstance(s, (tuple, list)) else int(s) for s in seeds], dtype=torch.int64)
     powers = torch.tensor([float(s[1]) if isinstance(s, (tuple, list)) else 0.0 for s in seeds], dtype=torch.float32)
-    scale_by = model.scale_by(getattr(model, "scale_style", "fan_in"), table.device)
-    return genome.reconstruct_gpu_style(table, idxs, powers, dim, scale_by)
+    scale_by = model.scale_by(getattr(model, "scale_style", "fan_in"), noise_table.device)
+    return genome.reconstruct_gpu_style(noise_table, idxs, powers, dim, scale_by)
 
 
 def initialize_from(small_snapshot_path: str, big_model, base_theta: torch.Tensor) -> torch.Tensor:

@@ -59,6 +59,13 @@ read it (so it is never dropped without a word).
 * ``env_kwargs`` — keyword arguments of the env: for the host engine
   ``batch_size`` (slots), ``num_threads``, ``pipeline_groups``;
 * ``noise_size`` — noise-table length (default 250M, the reference's);
+* ``noise`` — the noise source instead of the reference's host-built
+  ``RandomState(123)`` table (the JAX package's config.py:189-208):
+  ``"virtual"``, a ``VirtualNoise`` of ``PRNGKey(123)`` with ``noise_size``
+  ids (no table; rows regenerated where read, and ES's gradient without
+  K2), or ``"device"``, ``NoiseTable.from_key(PRNGKey(noise_seed))`` built
+  on the device. Any other value raises;
+* ``noise_seed`` — the ``"device"`` table's key seed (default 123);
 * ``theta_hbm_budget`` — bytes allowed for one round's θ batch;
 * ``eval_batch`` — ES: pairs a round; GA and RS: members a round on a
   device env (the engine's slots bound a host-engine round);
@@ -68,10 +75,11 @@ read it (so it is never dropped without a word).
   and ``timesteps_per_batch`` (the quotas);
 * ``bc_mode`` — NS-ES only: 'final' or 'traj'.
 
+A DQN policy's ``nonlin_type`` and ``ac_init_std`` reach the model as its
+``nonlin_type`` and ``out_std`` (the JAX package's config.py:113-116).
+
 Not ported yet, and rejected with ``NotImplementedError``: MuJoCo env ids
-(so ``humanoid*.json``); NS-ES on a GPU-stack file; a DQN policy's
-``nonlin_type`` other than relu and an ``ac_init_std`` other than the
-model's out-layer std (ROADMAP Queue 1 item 6).
+(so ``humanoid*.json``); NS-ES on a GPU-stack file.
 """
 
 from __future__ import annotations
@@ -88,14 +96,15 @@ from ..algos.nses import NSESConfig, NSESTrainer
 from ..device import resolve_device
 from ..envs.core import Continuous, Discrete
 from ..ops import optim
-from ..ops.noise import NoiseTable
+from ..ops.noise import DEFAULT_COUNT, NoiseTable, VirtualNoise, prng_key
 from . import checkpoint
 
 _OVERRIDES = {
     "game", "population_size", "episode_cutoff_mode", "env_kwargs", "noise_size", "theta_hbm_budget",
     "num_eval_episodes", "bc_mode", "eval_batch", "grad_chunk", "mirror_crn", "episodes_per_batch",
-    "timesteps_per_batch",
+    "timesteps_per_batch", "noise", "noise_seed",
 }
+_NOISE_SOURCES = ("virtual", "device")
 _ES_OVERRIDES = ("num_eval_episodes", "grad_chunk", "mirror_crn")
 _QUOTA_OVERRIDES = ("episodes_per_batch", "timesteps_per_batch")
 # experiment keys the JAX package acts on, and the (schema, algo) runs that
@@ -148,12 +157,8 @@ def build_model(policy_type: str, args: Dict[str, Any], env) -> models.Model:
         )
     num_actions = space.n if isinstance(space, Discrete) else env.num_actions
     kwargs = {k: args[k] for k in ("nonlin_type",) if k in args}
-    # GAAtariPolicy's ac_init_std is the JAX package's out_std (its config.py:
-    # 115-116), a class constant here
-    if "ac_init_std" in args and float(args["ac_init_std"]) != getattr(cls, "OUT_STD", None):
-        raise NotImplementedError(
-            f"{policy_type}: ac_init_std={args['ac_init_std']!r} is not ported; the port fixes the out layer's std "
-            f"of {cls.__name__} at {getattr(cls, 'OUT_STD', 'its normc default')} (ROADMAP Queue 1 item 6)")
+    if "ac_init_std" in args:  # GAAtariPolicy's out-layer std (policies.py:436)
+        kwargs["out_std"] = args["ac_init_std"]
     if "obs_dim" in getattr(cls, "__dataclass_fields__", {}):
         return cls(obs_dim=int(np.prod(env.obs_shape)), num_actions=num_actions, **kwargs)
     return cls(num_actions=num_actions, **kwargs)
@@ -215,8 +220,7 @@ def load_experiment(
     device = resolve_device(device)
     budget = {k: overrides[k] for k in ("theta_hbm_budget",) if k in overrides}
     ga_knobs = {**budget, **{k: int(overrides[k]) for k in ("eval_batch",) if k in overrides}}
-    if "noise_size" in overrides:
-        noise_table = NoiseTable.from_seed(count=int(overrides["noise_size"]), device=device)
+    noise_table = _noise_source(overrides, device, noise_table)
 
     if cpu_schema:
         env_id, model_name, model_args = exp["env_id"], exp["policy"]["type"], exp["policy"].get("args", {})
@@ -304,6 +308,25 @@ def load_experiment(
         if getattr(env, "is_host_env", False):
             env.close()  # the trainer that would own the engine does not exist
         raise
+
+
+def _noise_source(overrides: Dict[str, Any], device, noise_table):
+    """The noise source the overrides ask for (the JAX package's
+    config.py:189-208), else ``noise_table`` (None: the trainer builds the
+    reference's)."""
+    noise = overrides.get("noise")
+    count = int(overrides.get("noise_size", DEFAULT_COUNT))
+    if noise is not None and noise not in _NOISE_SOURCES:
+        raise ValueError(f"unknown noise source {noise!r}; the 'noise' override takes {_NOISE_SOURCES}")
+    if "noise_seed" in overrides and noise != "device":
+        raise ValueError("the 'noise_seed' override applies to 'noise': 'device' only")
+    if noise == "virtual":
+        return VirtualNoise.from_seed(count=count, device=device)
+    if noise == "device":
+        return NoiseTable.from_key(prng_key(int(overrides.get("noise_seed", 123))), count=count, device=device)
+    if "noise_size" in overrides:
+        return NoiseTable.from_seed(count=count, device=device)
+    return noise_table
 
 
 def _nses_trainer(env, model, exp: Dict[str, Any], overrides, budget, noise_table, seed: int, device) -> NSESTrainer:

@@ -134,9 +134,14 @@ def test_fields_the_port_fixes_must_hold_its_values(tmp_path):
     jckpt.save_policy_snapshot(path, jmodels.SmallDQN(num_actions=4, matvec_impl="pallas"), theta)
     model, _, _ = tckpt.load_policy_snapshot(path, device="cpu")  # a TPU-only knob is ignored
     assert model == tmodels.SmallDQN(num_actions=4)
-    for kw in ({"nonlin_type": "tanh"}, {"in_hw": 64}):
+    for kw in ({"nonlin_type": "tanh"}, {"in_hw": 64, "in_ch": 3}, {"out_std": 0.05}):
+        jm = jmodels.SmallDQN(num_actions=4, **kw)
+        jckpt.save_policy_snapshot(path, jm, jnp.zeros(jm.num_params))
+        model, _, _ = tckpt.load_policy_snapshot(path, device="cpu")  # the JAX fields are the port's now
+        assert model == tmodels.SmallDQN(num_actions=4, **kw)
+    for kw in ({"FC": 128}, {"LAYERS": (("conv1", 16, 8, 4),)}):  # fixed per class in the port
         jckpt.save_policy_snapshot(path, jmodels.SmallDQN(num_actions=4, **kw), theta)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(NotImplementedError, match="per class"):
             tckpt.load_policy_snapshot(path, device="cpu")
 
 

@@ -727,3 +727,25 @@ def test_device_rollout_graphs_match_eager(cuda_device, monkeypatch, env_id, mod
     for name, a, b in zip(rollout.RolloutResult._fields, graphed, eager):
         assert torch.equal(a, b), name
     assert int(eager.lengths.max()) > 2 * chunk  # past the eager first chunk: replays ran
+
+
+def test_virtual_noise_on_card(cuda_device):
+    """VirtualNoise rows and the device-built table on the card against the
+    CPU: the threefry words equal, the normals within 1e-6; the gradient
+    over a VirtualNoise within 1e-5·max|g|."""
+    from deep_neuroevolution_torch.ops import fitness, noise
+
+    vn = noise.VirtualNoise.from_seed(count=10**6, device=cuda_device)
+    ids = torch.tensor([0, 7, 2**31 - 1, 999_000])
+    k0, k1 = noise.fold_in_batch(vn.key, ids)
+    card_bits = noise._counter_bits(k0[:, None].to(cuda_device), k1[:, None].to(cuda_device), 0, 4097, cuda_device)
+    assert torch.equal(card_bits.cpu(), noise._counter_bits(k0[:, None], k1[:, None], 0, 4097, torch.device("cpu")))
+    card, cpu = vn.get_batch(ids, 4097).cpu(), vn.to("cpu").get_batch(ids, 4097)
+    assert float((card - cpu).abs().max()) <= 1e-6
+    key = noise.prng_key(7)
+    table = noise.NoiseTable.from_key(key, count=3_000_001, device=cuda_device)
+    assert float((table.noise.cpu() - noise.normal(key, 3_000_001, device="cpu")).abs().max()) <= 1e-6
+    w = torch.randn(4, generator=torch.Generator().manual_seed(0))
+    g = fitness.gradient_from_noise(vn, ids, w.to(cuda_device), 4097).cpu()
+    g_cpu = fitness.gradient_from_noise(vn.to("cpu"), ids, w, 4097)
+    assert float((g - g_cpu).abs().max()) <= 1e-5 * float(g_cpu.abs().max())

@@ -21,6 +21,17 @@ from deep_neuroevolution_tpu.models import dqn as jdqn
 from deep_neuroevolution_tpu.models.core import extract_patches as jax_patches
 from deep_neuroevolution_tpu.ops import pallas_fused_dqn as jfk
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: under the test runner's worker processes the CPU
+    forwards lose most of their time to contended threads."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 CLASSES = ("SmallDQN", "LargeDQN", "SmallDQNXavier", "LargeDQNXavier")
 
 

@@ -32,6 +32,17 @@ from deep_neuroevolution_tpu.ops import optim as jopt
 from deep_neuroevolution_tpu.ops.noise import NoiseTable as JaxNoise
 from deep_neuroevolution_tpu.utils import tabular as jtab
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: under the test runner's worker processes the CPU
+    forwards lose most of their time to contended threads."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 SLOTS, POP, CUTOFF, COUNT, SEED = 8, 16, 20, 2_000_000, 0
 
 

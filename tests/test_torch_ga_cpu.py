@@ -98,7 +98,7 @@ def test_frostbite_ga_loads_as_in_jax(algo):
     assert type(ttr).__name__ == type(jtr).__name__ == {None: "ESTrainer", "ga": "GATrainer", "rs": "RSTrainer"}[algo]
     assert type(ttr.model).__name__ == type(jtr.model).__name__ == "SmallDQN"
     assert ttr.model.nonlin_type == jtr.model.nonlin_type == "relu"
-    assert ttr.model.num_params == jtr.model.num_params and ttr.model.OUT_STD == jtr.model.out_std
+    assert ttr.model.num_params == jtr.model.num_params and ttr.model.out_std == jtr.model.out_std
     assert (ttr.env.batch_size, ttr.env.episodic_life) == (jtr.env.batch_size, jtr.env.episodic_life) == (256, True)
     if algo is None:
         assert isinstance(ttr, tes.ESTrainer)
@@ -110,19 +110,21 @@ def test_frostbite_ga_loads_as_in_jax(algo):
 
 @pytest.mark.parametrize("bad", [{"nonlin_type": "tanh"}, {"nonlin_type": "elu"}, {"ac_init_std": 0.2}])
 def test_unported_policy_args_are_refused(bad):
-    """A DQN's nonlin_type other than relu, or an ac_init_std other than the
-    model's out std, raises NotImplementedError naming the queue item; the
-    JAX package builds such a model, so dropping the arg would run another
-    network."""
+    """A DQN's nonlin_type other than relu and an ac_init_std other than the
+    model's out std reach the model as in the JAX package (its nonlin_type
+    and out_std, the same θ size); only a nonlinearity that neither package
+    has is refused, when the model is built."""
     exp = _frostbite_ga()
     exp["policy"]["args"].update(bad)
     jtr = jconfig.load_experiment(exp, overrides={"noise_size": COUNT})
     jtr.env.close()
     assert jtr.model.nonlin_type != "relu" or jtr.model.out_std != 0.1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tconfig.load_experiment(exp, overrides={"noise_size": COUNT}, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tmodels.VirtualBNDQN(num_actions=4, nonlin_type="tanh")
+    ttr = tconfig.load_experiment(exp, overrides={"noise_size": COUNT}, device="cpu")
+    ttr.close()
+    assert (ttr.model.nonlin_type, ttr.model.out_std) == (jtr.model.nonlin_type, jtr.model.out_std)
+    assert ttr.model.num_params == jtr.model.num_params
+    with pytest.raises(ValueError, match="nonlin_type"):
+        tmodels.VirtualBNDQN(num_actions=4, nonlin_type="swish")
 
 
 def test_the_models_own_out_std_is_accepted():

@@ -57,6 +57,17 @@ from deep_neuroevolution_tpu.ops.noise import NoiseTable as JaxNoise
 from deep_neuroevolution_tpu.utils import config as jconfig
 from deep_neuroevolution_tpu.utils import tabular as jtab
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: under the test runner's worker processes the CPU
+    forwards lose most of their time to contended threads."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
 COUNT = 2_000_000

@@ -156,8 +156,8 @@ def test_config_rejects_what_is_not_ported(tmp_path):
 
     with pytest.raises(NotImplementedError, match="no ALE"):
         config.load_experiment(exp, device="cpu")  # frostbite needs ALE
-    with pytest.raises(ValueError, match="unsupported overrides"):
-        config.load_experiment(exp, overrides={"noise": "virtual"}, device="cpu")
+    with pytest.raises(ValueError, match="unsupported overrides"):  # parallel/ is not ported
+        config.load_experiment(exp, overrides={"pod": True}, device="cpu")
     tr = config.load_experiment(exp, device="cpu", algo="ga", overrides={  # the GA's round size now acts
         "game": "toy", "eval_batch": 64, "noise_size": 3_000_000, "env_kwargs": {"batch_size": 4}})
     tr.close()
