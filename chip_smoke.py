@@ -161,7 +161,27 @@ ends:
    argmax equal but at a near tie; K3 at the replay's batch sizes against
    its plain version on the card, and timed); phase 14's maze
    policy through ``rollout_batch_scan`` (teacher-forced on the CPU, the
-   trajectories within 1e-3, the .npz keys the CPU's).
+   trajectories within 1e-3, the .npz keys the CPU's);
+26. scale-out, a torch.distributed world of one rank on NCCL: one
+   generation of configurations/maze_es.json at full size (512 members,
+   400 steps, the 250M table, built again) through ``PodESTrainer`` (the
+   loader's ``pod: true``) and through ``ESTrainer``, the same seed, two
+   generations each in turns (pod, single, single, pod): returns, lengths
+   and BCs equal bit for bit, θ within 1e-6; K2 once a generation in each;
+   then the GA on the maze (``algo: ga``) the same way. Seconds of each
+   arm's generations, and of the collectives;
+27. two ranks that share the card over gloo, two child processes of this
+   script (``--pod-rank``) on phase 1's kernel library: the device pods
+   (maze_es.json, maze_nses.json) and the host pods (phase 4's cut of
+   es_atari_config.json, ga_atari_config.json at 256 members and cutoff
+   200, frostbite_nses.json; each table cut to 25M floats) a few
+   generations each, every rank's outputs against the same case's
+   two-rank emulation in this process, bit for bit, and the maze ES pod
+   against the single trainer whose rounds are its blocks (returns bit for
+   bit, θ within 1e-6); K1, K2 and K3 must launch in each rank on their
+   cases; a ``main train --log_dir`` of maze_es.json in the two ranks,
+   where only rank 0 may write. Seconds a generation per rank and arm, and
+   the share of it in collectives.
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -175,6 +195,8 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2491,10 +2513,282 @@ def replay_maze_policy(device, path: str, work: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ scale-out
+
+POD_TABLE = 25_000_000  # phase 27's table cut (each rank builds its own)
+# phase 27: name → (configuration, algo, overrides, generations); the device
+# pods on the maze, the host pods on phase 4's cut of es_atari_config.json
+# (K1, K2), a cut of ga_atari_config.json (K3: 256 members, cutoff 200) and
+# frostbite_nses.json (K1, K2), each table cut to 25M floats
+POD_CASES = {
+    "maze_es": ("maze_es.json", None, {"noise_size": POD_TABLE}, 2),
+    "maze_nses": ("maze_nses.json", None, {"noise_size": POD_TABLE}, 2),
+    "es_atari": ("es_atari_config.json", None, SMOKE_OVERRIDES, 2),
+    "ga_atari": ("ga_atari_config.json", "ga", {**GA_OVERRIDES, "population_size": 256}, 1),
+    "frostbite_nses": ("frostbite_nses.json", None, {"noise_size": POD_TABLE}, 2),
+}
+POD_KERNELS = {"es_atari": ("population_linear", "noise_gradient"), "ga_atari": ("large_dqn_fused_scores",),
+               "frostbite_nses": ("population_linear", "noise_gradient"), "maze_es": ("noise_gradient",),
+               "maze_nses": ("noise_gradient",)}
+
+
+def digest(x) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()[:16]
+
+
+def pod_summary(tr, st) -> dict:
+    """A generation's outputs as numpy (θ and the GA's parents as digests
+    beside θ itself where it is small)."""
+    if hasattr(st, "population"):  # GA
+        return dict(fitness=np.array([o.fitness for o in st.population]), seeds=[o.seeds for o in st.population],
+                    elite=st.elite.seeds, parents=digest(tr.cached_parent_thetas.cpu().numpy()))
+    rec = dict(returns=st.returns, lengths=st.lengths, theta=tr.theta.cpu().numpy(),
+               theta_digest=digest(tr.theta.cpu().numpy()))
+    if hasattr(st, "novelty"):
+        rec.update(novelty=st.novelty, parent=st.parent)
+    else:
+        rec.update(bc=st.bc, eval_returns=st.eval_returns)
+    return rec
+
+
+def pod_generations(tr, generations: int) -> list:
+    """Each generation's outputs, seconds (synced), seconds in collectives
+    and kernel launches."""
+    import torch
+
+    sync = torch.cuda.synchronize if tr.device.type == "cuda" else (lambda: None)
+    out = []
+    for _ in range(generations):
+        zero_counters()
+        c0 = collective_seconds(tr)
+        sync()
+        t0 = time.perf_counter()
+        st = tr.train_step()
+        sync()
+        sec = time.perf_counter() - t0
+        out.append(dict(pod_summary(tr, st), seconds=sec, collective_seconds=collective_seconds(tr) - c0,
+                        launches=read_counters()))
+    return out
+
+
+def collective_seconds(tr) -> float:
+    """Seconds a pod trainer has spent in collectives (0 for a single one)."""
+    pod = getattr(tr, "pod", None)
+    return pod.seconds if pod is not None else 0.0
+
+
+def load_pod_case(name: str, device, extra=None, **kw):
+    from deep_neuroevolution_torch.utils import config
+
+    file, algo, overrides, _ = POD_CASES[name]
+    exp = json.loads((ROOT / "configurations" / file).read_text())
+    return config.load_experiment(exp, overrides={**overrides, **(extra or {})}, device=device, algo=algo, **kw)
+
+
+def pod_child(rank: int, world: int, store: str, out_dir: str, device: str = "cuda:0") -> None:
+    """A rank of phase 27: gloo on the shared card; every case of
+    ``POD_CASES``, then one ``main train --log_dir`` of maze_es.json (rank 1
+    logs to its own directory, which must stay unmade)."""
+    import pickle
+
+    import torch
+
+    from deep_neuroevolution_torch import main as cli
+    from deep_neuroevolution_torch.ops import _cuda_build
+    from deep_neuroevolution_torch.parallel import distributed, mesh
+
+    mesh.PopGroup.timed = True  # the collectives' seconds
+    device = torch.device(device)
+    if device.type == "cuda":
+        _cuda_build.load()  # the library phase 1 built
+    distributed.init_multihost(backend="gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                               device=device)
+    out = Path(out_dir)
+    res = {"probe": {}}
+    for op, fn in (("all_gather", lambda t: distributed.all_gather(t)),
+                   ("all_reduce", lambda t: distributed.all_reduce_sum(t))):
+        t = torch.full((3,), float(rank + 1), device=device)
+        got = fn(t)
+        res["probe"][op] = dict(device=str(got.device), values=got.cpu().tolist())
+    for name, (_, _, _, gens) in POD_CASES.items():
+        tr = load_pod_case(name, device)
+        try:
+            res[name] = dict(type=type(tr).__name__, runs=pod_generations(tr, gens))
+        finally:
+            tr.close()
+        del tr
+        torch.cuda.empty_cache()
+    log_dir = out / ("cli_logs" if rank == 0 else f"cli_logs_rank{rank}")
+    cli.main(["train", "--device", str(device), "--exp_file", str(ROOT / "configurations" / "maze_es.json"),
+              "--iterations", "1", "--log_dir", str(log_dir), "--overrides", json.dumps({"noise_size": POD_TABLE})])
+    with open(out / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    distributed.shutdown()
+
+
+def same_outputs(want: dict, got: dict, what: str, theta_atol: float = 0.0) -> float:
+    """Equal outputs (``theta`` within ``theta_atol``); returns θ's max
+    difference."""
+    diff = 0.0
+    for k, v in want.items():
+        if k in ("seconds", "collective_seconds", "launches") or (k == "theta_digest" and theta_atol):
+            continue
+        if k == "theta":
+            diff = float(np.abs(got[k] - v).max())
+            require(diff <= theta_atol, f"{what}: θ differs by {diff} (allowed {theta_atol})")
+        elif isinstance(v, np.ndarray):
+            require(v.shape == got[k].shape and bool(np.array_equal(v, got[k])), f"{what}: {k} differs")
+        else:
+            require(v == got[k], f"{what}: {k} differs")
+    return diff
+
+
+def run_pod_world_of_one(device, table, backend: str = "nccl") -> dict:
+    """Phase 26: a torch.distributed world of one rank on NCCL; one
+    generation of maze_es.json at full size through PodESTrainer (``pod:
+    true``) and the same through ESTrainer, the same seed and table; then
+    the GA on the maze the same way."""
+    import torch
+
+    from deep_neuroevolution_torch.parallel import distributed, mesh
+    from deep_neuroevolution_torch.utils import config
+
+    mesh.PopGroup.timed = True  # the collectives' seconds
+    exp = json.loads((ROOT / "configurations" / "maze_es.json").read_text())
+    store = tempfile.NamedTemporaryFile(prefix="nevo_pod_store_", delete=False).name
+    os.unlink(store)
+    distributed.init_multihost(backend=backend, init_method=f"file://{store}", world_size=1, rank=0, device=device)
+    rows = {}
+    try:
+        require(distributed.backend() == backend, f"backend {distributed.backend()}")
+        for algo in ("es", "ga"):
+            trs = {}
+            for arm, pod in (("pod", True), ("single", False)):
+                trs[arm] = config.load_experiment(exp, overrides={"pod": pod}, device=device, algo=algo,
+                                                  noise_table=table)
+                require(type(trs[arm]).__name__ == ("Pod" if pod else "") + ("ES" if algo == "es" else "GA")
+                        + "Trainer", f"phase 26 {algo} {arm}: {type(trs[arm]).__name__}")
+            gens = {"pod": [], "single": []}
+            for arm in ("pod", "single", "single", "pod"):  # two generations each, in turns
+                gens[arm] += pod_generations(trs[arm], 1)
+            diff = 0.0
+            for g, (p, s) in enumerate(zip(gens["pod"], gens["single"])):
+                diff = max(diff, same_outputs(s, p, f"phase 26 {algo} generation {g}", theta_atol=1e-6))
+                if algo == "es":
+                    require(p["launches"]["noise_gradient"] == 1 == s["launches"]["noise_gradient"],
+                            f"phase 26: K2 launched {p['launches']['noise_gradient']} times in the pod")
+            rows[algo] = dict(pod_seconds=[p["seconds"] for p in gens["pod"]],
+                              single_seconds=[s["seconds"] for s in gens["single"]],
+                              collective_seconds=[p["collective_seconds"] for p in gens["pod"]],
+                              collectives=trs["pod"].pod.calls, theta_max_diff=diff,
+                              launches=gens["pod"][0]["launches"])
+            del trs, gens
+    finally:
+        distributed.shutdown()
+    return rows
+
+
+def run_pod_two_ranks(device) -> dict:
+    """Phase 27: two ranks that share the card over gloo, each a child
+    process (``chip_smoke.py --pod-rank R``) on the kernel library phase 1
+    built; every case against the same case in this process: the host pods
+    against their ``host_pod: 2`` emulation and the device pods against
+    theirs, bit for bit; the device ES pod against the single trainer whose
+    rounds are its blocks (``eval_batch`` 128, the pod's pairs a rank:
+    returns bit for bit, θ within float reordering). K1, K2 and K3 must launch in each rank on their
+    cases; only rank 0 writes the log directory."""
+    import pickle
+
+    import torch
+
+    from deep_neuroevolution_torch.parallel import trainers as pt
+
+    work = Path(tempfile.mkdtemp(prefix="nevo_pod2_"))
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([*POD_CHILD, "--pod-rank", str(r), "2", str(work / "store"), str(work), str(device)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=700)[0])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    ranks_seconds = time.perf_counter() - t0
+    for r, log in enumerate(logs):
+        (work / f"rank{r}.log").write_text(log)
+    require(all(pr.returncode == 0 for pr in procs),
+            "phase 27 ranks failed:\n" + "\n".join(f"-- rank {r}\n{log[-3000:]}" for r, log in enumerate(logs)))
+    res = []
+    for r in (0, 1):
+        with open(work / f"rank{r}.pkl", "rb") as f:
+            res.append(pickle.load(f))
+    require(not (work / "cli_logs_rank1").exists(), "phase 27: rank 1 wrote its log directory")
+    require((work / "cli_logs" / "metrics.jsonl").exists(), "phase 27: rank 0 wrote no log")
+    summary = dict(ranks_seconds=ranks_seconds, probe=res[0]["probe"], cases={})
+    for name, (_, _, _, gens) in POD_CASES.items():
+        host = name not in ("maze_es", "maze_nses")
+        t1 = time.perf_counter()
+        if host:
+            emu = load_pod_case(name, device, {"host_pod": 2})
+        else:
+            single = load_pod_case(name, device, {"pod": False})
+            cls = pt.PodESTrainer if name == "maze_es" else pt.PodNSESTrainer
+            emu = cls(single.env, single.model, single.config, optimizer=single.optimizer, noise_table=single.noise,
+                      device=device, emulate_procs=2)
+            del single
+        try:
+            want = pod_generations(emu, gens)
+            block_pairs = emu._npairs_round() if name == "maze_es" else None
+        finally:
+            emu.close()
+        del emu
+        torch.cuda.empty_cache()
+        for r in (0, 1):
+            require(res[r][name]["type"] == type_name(name), f"phase 27 {name}: rank {r} ran {res[r][name]['type']}")
+            for g, (w, got) in enumerate(zip(want, res[r][name]["runs"])):
+                same_outputs(w, got, f"phase 27 {name} rank {r} generation {g}")
+            for k in POD_KERNELS[name]:
+                require(all(run["launches"][k] > 0 for run in res[r][name]["runs"]),
+                        f"phase 27 {name}: {k} did not launch in rank {r}")
+        row = dict(emulation_seconds=[w["seconds"] for w in want], emulation_seconds_total=time.perf_counter() - t1)
+        for r in (0, 1):
+            runs = res[r][name]["runs"]
+            row[f"rank{r}"] = dict(seconds=[x["seconds"] for x in runs],
+                                   collective_share=[x["collective_seconds"] / x["seconds"] for x in runs],
+                                   launches=[{k: x["launches"][k] for k in POD_KERNEL_NAMES} for x in runs])
+        if name == "maze_es":  # the single trainer whose rounds are the pod's blocks
+            single = load_pod_case(name, device, {"pod": False, "eval_batch": block_pairs})
+            s = pod_generations(single, 1)[0]  # one generation: θ then differs by float reordering
+            del single
+            row["single_theta_max_diff"] = same_outputs(s, res[0][name]["runs"][0], "phase 27 maze_es vs single",
+                                                        theta_atol=1e-6)
+            row["single_seconds"] = s["seconds"]
+        summary["cases"][name] = row
+    shutil.rmtree(work, ignore_errors=True)
+    return summary
+
+
+POD_KERNEL_NAMES = ("population_linear", "noise_gradient", "large_dqn_fused_scores")
+POD_CHILD = [sys.executable, str(Path(__file__).resolve())]  # a phase-27 rank: this script, --pod-rank
+
+
+def type_name(name: str) -> str:
+    base = {"maze_es": "ESTrainer", "maze_nses": "NSESTrainer", "es_atari": "ESTrainer", "ga_atari": "GATrainer",
+            "frostbite_nses": "NSESTrainer"}[name]
+    return ("Pod" if name.startswith("maze") else "HostPod") + base
+
+
 def main() -> int:
     import torch
 
     from deep_neuroevolution_torch import resolve_device
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
 
     device = resolve_device("cuda")  # raises NoCudaDevice without a card
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")  # the policy files phase 25 replays
@@ -2591,6 +2885,7 @@ def main() -> int:
     with Phase("K4/K6 vbn_dqn_fused"):
         vbn = check_vbn_fused(device)
     route_launches, route_by_batch, route_times = {}, {}, {}
+    pod_k3 = {}  # K3's launches in each rank of phase 27
     for impl in (*VBN_ROUTES, "split"):
         with Phase(f"ES generation, {impl}"):
             es_run = run_es_route(device, impl)
@@ -2609,8 +2904,6 @@ def main() -> int:
         if impl in VBN_ROUTES:
             with Phase(f"{VBN_ROUTES[impl][0]} at the ES generation's batch sizes"):
                 route_times[impl] = time_vbn_by_batch(device, impl, route_by_batch[impl])
-
-    from deep_neuroevolution_torch.ops.noise import NoiseTable
 
     with Phase("noise table") as table_phase:
         table = NoiseTable.from_seed(device=device)  # the reference's 250M floats, built once
@@ -2736,6 +3029,30 @@ def main() -> int:
         replays = dict(toy=replay_toy_policy(device, toy_policy), large_chain=replay_large_chain(device),
                        maze=replay_maze_policy(device, maze_policy, work.name))
     work.cleanup()
+
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
+
+    with Phase("a world of one rank on NCCL: the device pods against the single trainers"):
+        table = NoiseTable.from_seed(device=device)  # phase 13's table again
+        pod_one = run_pod_world_of_one(device, table)
+        del table
+        torch.cuda.empty_cache()
+    print("pod_world_of_one " + json.dumps(pod_one), flush=True)
+    with Phase("two ranks sharing the card over gloo: device and host pods against their emulation"):
+        pod_two = run_pod_two_ranks(device)
+    print("pod_two_ranks " + json.dumps(pod_two), flush=True)
+    device_paths["pod1_maze_es"] = dict(launches=pod_one["es"]["launches"]["noise_gradient"], B=256, D=498)
+    for case, row in pod_two["cases"].items():
+        for r in (0, 1):
+            first = row[f"rank{r}"]["launches"][0]
+            for kname, paths in (("population_linear", ns_k1), ("noise_gradient", device_paths),
+                                 ("large_dqn_fused_scores", None)):
+                if first[kname]:
+                    rec = dict(launches=first[kname])
+                    if paths is None:
+                        pod_k3[f"pod2_{case}_rank{r}"] = rec
+                    else:
+                        paths[f"pod2_{case}_rank{r}"] = rec
     es_virtual, es_device = (noise_runs["es"][m]["generations"][0] for m in NOISE_MODES)
     ns_k1["es_virtual"] = dict(launches=es_virtual["k1"], by_batch=noise_runs["es"]["virtual"]["k1_by_batch"])
     ns_k1["model_variants"] = dict(launches=sum(r["k1"] for r in variants["rows"]),
@@ -2786,7 +3103,7 @@ def main() -> int:
                   launches=replays["large_chain"]["k3"], by_batch=replays["large_chain"]["k3_by_batch"],
                   graph_ms_by_batch=replays["large_chain"]["k3_graph_ms_by_batch"],
                   max_abs_err_by_batch=replays["large_chain"]["k3_plain_max_abs_err_by_batch"],
-                  teacher_forced_max_abs_err=replays["large_chain"]["teacher_forced_max_abs_err"])}),
+                  teacher_forced_max_abs_err=replays["large_chain"]["teacher_forced_max_abs_err"]), **pod_k3}),
         entry("vbn_dqn_fused1_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:147", route_launches["fused1"], k4_row,
               **vbn_extra("fused1", k4_row)),
@@ -2806,4 +3123,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pod-rank"]:  # a rank of phase 27
+        pod_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+        sys.exit(0)
     sys.exit(main())

@@ -78,7 +78,7 @@ from ..ops.noise import NoiseTable, VirtualNoise
 from ..ops.noise_gradient import noise_gradient
 from ..utils import tabular as tlogger
 from ..utils import vine
-from .rollout import collect_ref_batch, paired_reset, rollout_batch
+from .rollout import collect_ref_batch, index_state, paired_reset, rollout_batch
 from .rollout_host import collect_ref_batch_host, rollout_host_batch
 
 
@@ -155,6 +155,8 @@ def pair_columns(x: np.ndarray, npairs: int) -> np.ndarray:
 class ESTrainer:
     """Fixed-population ES on a host-engine env or a device env."""
 
+    writes = True  # VINE dumps; a pod's ranks but rank 0 write nothing
+
     def __init__(
         self,
         env,
@@ -179,12 +181,7 @@ class ESTrainer:
             raise ValueError(f"noise table ({self.noise.size}) must exceed num_params ({model.num_params})")
         self.theta = model.init_theta(self.gen, self.device)
         self.cutoff = parse_cutoff(config.episode_cutoff_mode, env.default_timestep_cutoff)
-        self.ref_batch = None
-        if model.needs_ref_batch:
-            if self.is_host_env:
-                self.ref_batch = collect_ref_batch_host(env, self._draw_seed(), self.device)
-            else:
-                self.ref_batch = collect_ref_batch(env, self._episode_gen(self._draw_seed()), self.device)
+        self.ref_batch = self._collect_ref_batch(self._draw_seed()) if model.needs_ref_batch else None
         self.opt_state = self.optimizer.init(model.num_params, self.device)
         self.ob_stat = obstat.init(env.obs_shape, eps=1e-2, device=self.device)  # es.py:155-158
         self.iteration = 0
@@ -194,6 +191,12 @@ class ESTrainer:
         self.last_dispatches: list = []  # quota mode, device env: the rounds of each estimate
         self.last_stats: Optional[GenStats] = None
         self._tstart = time.time()
+
+    def _collect_ref_batch(self, seed: int) -> torch.Tensor:
+        """The VBN reference batch a random policy collects, from a seed."""
+        if self.is_host_env:
+            return collect_ref_batch_host(self.env, seed, self.device)
+        return collect_ref_batch(self.env, self._episode_gen(seed), self.device)
 
     # --------------------------------------------------------------- draws
 
@@ -261,13 +264,14 @@ class ESTrainer:
             return None
         return MLPContext(obstat.mean(self.ob_stat), obstat.std(self.ob_stat), 1.0 if noisy else 0.0, gen, paired)
 
-    def _host_rollout(self, npairs: int, collect_bc_traj: bool = False):
+    def _host_rollout(self, npairs: int, collect_bc_traj: bool = False, draws=None):
         """θ±σε for ``npairs`` pairs on the first ``2·npairs`` engine slots;
         the reference stats are computed for those members only, and
         unused slots run copies of the last member and its stats; with
-        ``mirror_crn`` a pair's slots share their draws. Returns (idxs, the
+        ``mirror_crn`` a pair's slots share their draws. ``draws`` is the
+        round's ``_draw_round`` when the caller made it. Returns (idxs, the
         engine's RolloutResult over every slot)."""
-        idxs, seed = self._draw_round(npairs)
+        idxs, seed = draws if draws is not None else self._draw_round(npairs)
         thetas = self._perturbed(idxs)
         with record_function("es.ref_stats"):
             stats = self.model.batch_ref_stats(thetas, self.ref_batch) if self.model.needs_ref_batch else None
@@ -283,11 +287,11 @@ class ESTrainer:
             )
         return idxs, res
 
-    def _host_round(self, npairs: int):
+    def _host_round(self, npairs: int, draws=None):
         """One antithetic round (``_host_rollout``). Returns (idxs, returns
         [n,2], sign returns [n,2], lengths [n,2], bc [n,2,·], engine episode
         seeds [n,2]) as numpy."""
-        idxs, res = self._host_rollout(npairs)
+        idxs, res = self._host_rollout(npairs, draws=draws)
         return idxs, *(pair_columns(x, npairs) for x in (res.returns, res.sign_returns, res.lengths, res.bc,
                                                           res.ep_seeds))
 
@@ -312,13 +316,14 @@ class ESTrainer:
             return thetas, self.model.batch_ref_stats(thetas, self.ref_batch)
         return thetas, ctx
 
-    def _device_round(self, npairs: int, obstat_prob: Optional[float]):
+    def _device_round(self, npairs: int, obstat_prob: Optional[float], draws=None):
         """One antithetic round on the device env (the JAX package's
         ``_perturbed_round_body``): 2·npairs slots, pairs from one reset
-        state. Returns (idxs, returns [n,2], sign returns [n,2], lengths
-        [n,2], bc [n,2,·], ob_sum, ob_sumsq, ob_count, the rollout seed), on
-        the device but idxs and the seed."""
-        idxs, seed = self._draw_round(npairs)
+        state; ``draws`` as in ``_host_rollout``. Returns (idxs, returns
+        [n,2], sign returns [n,2], lengths [n,2], bc [n,2,·], ob_sum,
+        ob_sumsq, ob_count, the rollout seed), on the device but idxs and
+        the seed."""
+        idxs, seed = draws if draws is not None else self._draw_round(npairs)
         state, gen = self._episode_starts(seed, npairs, paired=True)
         thetas = self._perturbed(idxs)
         with record_function("es.ref_stats"):
@@ -334,13 +339,17 @@ class ESTrainer:
         return (idxs, pair(res.returns), pair(res.sign_returns), pair(res.lengths), pair(res.bc),
                 res.ob_sum, res.ob_sumsq, res.ob_count, seed)
 
-    def _device_eval(self, seed: int):
+    def _device_eval(self, seed: int, rows: Optional[Tuple[int, int]] = None):
         """``num_eval_episodes`` noiseless episodes of θ on the device env,
         each from its own reset state (the JAX package's
-        ``_eval_theta_body``). Returns (returns [n], lengths [n], bc [n, ·])
-        on the device."""
+        ``_eval_theta_body``); ``rows = (lo, hi)`` runs only those episodes
+        of the ``n``, from the same reset states. Returns (returns, lengths,
+        bc [·, bc_dim]) on the device."""
         n = self.config.num_eval_episodes
         state, gen = self._episode_starts(seed, n, paired=False)
+        if rows is not None:
+            state = index_state(state, torch.arange(*rows, device=state[0].device))
+            n = rows[1] - rows[0]
         thetas = self.theta[None].expand(n, -1)
         if self.model.needs_ref_batch:
             one = self.model.batch_ref_stats(self.theta[None], self.ref_batch)
@@ -366,13 +375,17 @@ class ESTrainer:
         proc = self._process_returns(rets, srets)
         w = (proc[:, 0] - proc[:, 1]).contiguous()
         idxs = noise_idxs.to(self.device, torch.int32).contiguous()
-        if isinstance(self.noise, VirtualNoise):  # rows regenerated, no table for K2 (es.py:335)
-            g = fitness.gradient_from_noise(self.noise, idxs, w, self.model.num_params, cfg.grad_chunk)
-        else:
-            g = noise_gradient(self.noise.noise, idxs, w, self.model.num_params, cfg.grad_chunk)
-        g = g / rets.numel()  # es.py:296
+        g = self._noise_gradient(idxs, w) / rets.numel()  # es.py:296
         opt_state, theta, ratio = self.optimizer.update(self.opt_state, self.theta, -g + cfg.l2coeff * self.theta)
         return g, opt_state, theta, ratio
+
+    def _noise_gradient(self, idxs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Σᵢ wᵢ·εᵢ over the rows at ``idxs``: K2 on a table; on a
+        ``VirtualNoise`` the rows regenerated, without K2 (es.py:335)."""
+        D, chunk = self.model.num_params, self.config.grad_chunk
+        if isinstance(self.noise, VirtualNoise):
+            return fitness.gradient_from_noise(self.noise, idxs, w, D, chunk)
+        return noise_gradient(self.noise.noise, idxs, w, D, chunk)
 
     def train_step(self) -> GenStats:
         return self._host_generation() if self.is_host_env else self._device_generation()
@@ -456,7 +469,9 @@ class ESTrainer:
         idxs = torch.cat([r[0] for r in rounds])
         rets, srets, lens, bcs = (torch.cat([r[i] for r in rounds]) for i in range(1, 5))
         ob_sum, ob_sumsq, ob_count = (sum(r[i] for r in rounds) for i in range(5, 8))
-        seeds_n2 = np.repeat(np.array([r[8] for r in rounds], np.int64), npairs)[:, None].repeat(2, axis=1)
+        # a round's rollout seed, or a seed a pair (a pod's rounds)
+        seeds_n2 = np.concatenate([np.broadcast_to(np.asarray(r[8], np.int64), (r[0].shape[0],)) for r in rounds])
+        seeds_n2 = seeds_n2[:, None].repeat(2, axis=1)
         with record_function("es.update"):
             g, opt_state, theta, ratio = self._compute_update(idxs, rets, srets)
         eval_rets = eval_lens = eval_bc = torch.zeros(0, device=self.device)
@@ -517,7 +532,7 @@ class ESTrainer:
             "TimestepsPerSecondThisIter", int(lengths_n2.sum()) / max(step_tend - step_tstart, 1e-9)
         )
         tlogger.dump_tabular()
-        if self.config.vine_snapshot_dir:
+        if self.config.vine_snapshot_dir and self.writes:
             vine.master_extract_cloud(self.config.vine_snapshot_dir, self.iteration, bc_n2, returns_n2, lengths_n2,
                                       noise_idxs.numpy(), seeds_n2)
             vine.master_extract_parent(

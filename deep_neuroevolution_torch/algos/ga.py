@@ -45,7 +45,7 @@ round's reset states (``_episode_starts``).
 The noise source is a ``NoiseTable`` or a ``VirtualNoise`` (the loader's
 ``noise: virtual``), whose rows every genome step regenerates (the JAX
 package's ``_table_arg``, :250-257); the genome functions take the source
-object itself. Not ported yet: the pod trainers.
+object itself. The pod trainers are in parallel/.
 """
 
 from __future__ import annotations
@@ -113,6 +113,8 @@ class GAState:
 class GATrainer:
     """Deep GA on a host-engine env or a device env."""
 
+    writes = True  # VINE dumps; a pod's ranks but rank 0 write nothing
+
     def __init__(
         self,
         env,
@@ -139,11 +141,13 @@ class GATrainer:
         self.scale_by = model.scale_by(getattr(model, "scale_style", "fan_in"), self.device)
         self.cached_parent_thetas: Optional[torch.Tensor] = None  # [T, D]
         self.cached_parent_seeds: List[Tuple] = []
-        self.ref_batch = None
-        if model.needs_ref_batch:
-            seed = self._draw_seed()
-            self.ref_batch = (collect_ref_batch_host(env, seed, self.device) if self.is_host_env
-                              else collect_ref_batch(env, self._episode_gen(seed), self.device))
+        self.ref_batch = self._collect_ref_batch(self._draw_seed()) if model.needs_ref_batch else None
+
+    def _collect_ref_batch(self, seed: int) -> torch.Tensor:
+        """The VBN reference batch a random policy collects, from a seed."""
+        if self.is_host_env:
+            return collect_ref_batch_host(self.env, seed, self.device)
+        return collect_ref_batch(self.env, self._episode_gen(seed), self.device)
 
     # --------------------------------------------------------------- draws
 
@@ -233,12 +237,13 @@ class GATrainer:
 
     # ----------------------------------------------------------- evaluation
 
-    def _eval_host(self, thetas: torch.Tensor, tslimit: int):
+    def _eval_host(self, thetas: torch.Tensor, tslimit: int, seed: Optional[int] = None):
         """One engine round for ``n <= slots`` members: pad them to a
         power-of-two slot bucket with copies of the last (ga.py:357-380),
-        roll out on slots ``[0, bucket)``, drop the padding. Returns numpy
-        (returns [n], lengths [n], bc [n, ...])."""
-        seed = self._draw_seed()
+        roll out on slots ``[0, bucket)``, drop the padding. The rollout
+        seed is drawn unless given. Returns numpy (returns [n], lengths
+        [n], bc [n, ...])."""
+        seed = self._draw_seed() if seed is None else seed
         n = thetas.shape[0]
         B = self.env.batch_size
         nb = 1
@@ -254,18 +259,20 @@ class GATrainer:
         )
         return res.returns[:n], res.lengths[:n], res.bc[:n]
 
-    def _eval_device(self, thetas: torch.Tensor, tslimit: int):
+    def _eval_device(self, thetas: torch.Tensor, tslimit: int, seed: Optional[int] = None):
         """One device-env round: an episode of each of ``thetas [n, D]``,
         each from its own reset state (the JAX package's ``_eval_thetas``
-        and a round of ``_ga_gen_rounds``). Returns (returns [n], lengths
-        [n], bc [n, bc_dim]) on the device."""
-        state = self._episode_starts(self._draw_seed(), thetas.shape[0])
+        and a round of ``_ga_gen_rounds``); the rollout seed is drawn
+        unless given. Returns (returns [n], lengths [n], bc [n, bc_dim]) on
+        the device."""
+        state = self._episode_starts(self._draw_seed() if seed is None else seed, thetas.shape[0])
         stats = self.model.batch_ref_stats(thetas, self.ref_batch) if self.model.needs_ref_batch else None
         res = rollout_batch(self.env, self.model.make_batch_act(), (thetas, stats), state, int(tslimit))
         return res.returns, res.lengths, res.bc
 
-    def _eval(self, thetas: torch.Tensor, tslimit: int):
-        return self._eval_host(thetas, tslimit) if self.is_host_env else self._eval_device(thetas, tslimit)
+    def _eval(self, thetas: torch.Tensor, tslimit: int, seed: Optional[int] = None):
+        args = (thetas, tslimit) if seed is None else (thetas, tslimit, seed)
+        return self._eval_host(*args) if self.is_host_env else self._eval_device(*args)
 
     def _chunk(self, n: int) -> int:
         """Members a round evaluates: at most the θ budget's
@@ -425,7 +432,7 @@ class GATrainer:
         tlogger.record_tabular("TimeElapsedThisIter", dt)
         tlogger.record_tabular("TimeElapsed", st.time_elapsed)
         tlogger.dump_tabular()
-        if cfg.vine_snapshot_dir:  # ga_modified.py:22-64: GA has no pairs, so both columns are the offspring's
+        if cfg.vine_snapshot_dir and self.writes:  # ga_modified.py:22-64: GA has no pairs, so both columns are the offspring's
             midx = np.array([c[-1][0] if len(c) > 1 and isinstance(c[-1], tuple) else c[0] for c in chains])
             off = rewards[-n:]  # the offspring's rows, past the carried-over elites
             vine.master_extract_cloud(cfg.vine_snapshot_dir, st.it, np.stack([bcs, bcs], axis=1),

@@ -39,7 +39,7 @@ generator seeded from it; JAX's threefry draws cannot be reproduced.
 
 The noise source is a table or a ``VirtualNoise``, through ES's
 perturbation and gradient (the JAX package's ``_table_arg``, nses.py:88-95,
-248-251). Not ported yet: the pod trainers, MuJoCo.
+248-251). The pod trainers are in parallel/. Not ported yet: MuJoCo.
 """
 
 from __future__ import annotations
@@ -203,22 +203,23 @@ class NSESTrainer(ESTrainer):
             proc = (fitness.compute_centered_ranks(rets) + proc) / 2.0
         return proc
 
-    def _perturbed_eval(self, npairs: int):
+    def _perturbed_eval(self, npairs: int, draws=None):
         """One antithetic round of the current parent with each rollout's BC
-        and novelty. Returns (idxs, returns, novelty, lengths, bc, ob_sum,
+        and novelty; ``draws`` is the round's ``_draw_round`` when the caller
+        made it. Returns (idxs, returns, novelty, lengths, bc, ob_sum,
         ob_sumsq, ob_count): columns [n, 2], on the device but idxs on the
         device env; numpy on the host engine."""
         cfg = self.config
         if not self.is_host_env:
             p = cfg.calc_obstat_prob
             obstat_prob = p if self.model.needs_ob_stat and 0.0 < p < 1.0 else None
-            idxs, rets, _, lens, bcs, ob_sum, ob_sumsq, ob_count, _ = self._device_round(npairs, obstat_prob)
+            idxs, rets, _, lens, bcs, ob_sum, ob_sumsq, ob_count, _ = self._device_round(npairs, obstat_prob, draws)
             if not (self.model.needs_ob_stat and cfg.calc_obstat_prob > 0):
                 ob_count = 0.0  # nothing is collected (the JAX package's collect_obstat)
             with record_function("nses.novelty"):
                 nov = novelty.novelty_vs_archive(self.archive, bcs.reshape(2 * npairs, -1), cfg.k)
             return idxs, rets, nov.reshape(npairs, 2), lens, bcs, ob_sum, ob_sumsq, ob_count
-        idxs, res = self._host_rollout(npairs, collect_bc_traj=self.traj_bc)
+        idxs, res = self._host_rollout(npairs, collect_bc_traj=self.traj_bc, draws=draws)
         with record_function("nses.novelty"):
             if self.traj_bc:
                 bcs = res.bc_traj[: 2 * npairs]

@@ -58,6 +58,7 @@ class AtariEnv:
         if obs_mode not in ("gray", "indexed", "preproc"):
             raise ValueError(f"obs_mode must be 'gray', 'indexed' or 'preproc', not {obs_mode!r}")
         self.game = game
+        self.num_threads = num_threads
         self._env = HostBatchEnv("toy", batch_size, num_threads, episodic_life=episodic_life)
         self.episodic_life = episodic_life
         self.obs_mode = obs_mode
@@ -70,6 +71,12 @@ class AtariEnv:
         # slot groups the rollout interleaves, so the device computes one
         # group's actions while the engine steps another
         self.pipeline_groups = pipeline_groups
+
+    def spawn(self) -> "AtariEnv":
+        """A fresh engine pool of the same kind (a pod's emulated rank owns
+        one, as a real rank does)."""
+        return AtariEnv(self.game, self.batch_size, self.num_threads, self.pipeline_groups, self.episodic_life,
+                        self.obs_mode)
 
     def reset(self, noops: np.ndarray, indices=None, max_frames: int = DEFAULT_TIMESTEP_CUTOFF, seeds=None):
         self._env.reset(noops, indices=indices, max_frames=max_frames, seeds=seeds)

@@ -47,6 +47,18 @@ experiment as JSON instead of ``--exp_file``. ``--profile_dir`` traces the
 last generation with ``torch.profiler`` (with ``--iterations 0``, the
 first).
 
+Several cards (the JAX package's pod launch, main.py:49): start one
+process per card with torchrun; each rank runs the same command, the
+loader picks the pod trainer (utils/config.py; parallel/), only rank 0
+writes the log directory, snapshots and policy files, and the run ends by
+logging each rank's digest of θ (a GA's population) and raising unless
+they agree:
+
+    python -m torch.distributed.run --nproc_per_node 2 -m deep_neuroevolution_torch.main train \
+        --exp_file configurations/maze_es.json --iterations 10 --log_dir logs/maze_pod
+
+Without torchrun a run is a world of one, as before.
+
 ``replay`` (the JAX package's main.py:108-146, 163-178) rolls a policy
 file of either package (``--snapshot``) or a seed-chain elite (``--seeds``
 with ``--model``, ``--model_kwargs``, ``--genome_style``, ``--noise_stdev``,
@@ -74,7 +86,40 @@ from .device import NoCudaDevice
 
 def cmd_train(args):
     """Run ``args.iterations`` generations (0: until stopped); returns the
-    trainer, its engine closed."""
+    trainer, its engine closed. In a torchrun world only rank 0 writes, and
+    the run ends by checking that every rank holds the same state."""
+    from .parallel import distributed
+    from .utils import tabular as tlogger
+
+    joined = distributed.init_multihost(device=args.device)  # no-op without torchrun
+    try:
+        trainer = _train(args, distributed.is_coordinator())
+        if distributed.process_count() > 1:
+            what = f"{type(trainer).__name__} {'population' if _is_ga(trainer) else 'θ'}"
+            digest = _state_digest(trainer)
+            tlogger.log(f"rank {distributed.process_index()} of {distributed.process_count()}: {what} "
+                        f"sha256 {digest}")
+            distributed.check_replicated(digest, what)
+        return trainer
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _state_digest(trainer) -> str:
+    """A digest of the state every rank of a pod holds alike: θ, or the
+    GA's population (seeds and fitness)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    if _is_ga(trainer):
+        h.update(repr([(o.seeds, float(o.fitness)) for o in trainer.state.population]).encode())
+    else:
+        h.update(trainer.theta.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _train(args, writes: bool):
     from .utils import checkpoint, config, tabular as tlogger
 
     if args.exp_file:
@@ -82,7 +127,7 @@ def cmd_train(args):
             exp = json.load(f)
     else:
         exp = json.loads(args.exp_str)
-    if args.log_dir:
+    if args.log_dir and writes:
         os.makedirs(args.log_dir, exist_ok=True)
         tlogger.start(args.log_dir)
     tlogger.log(f"experiment: {json.dumps(exp, sort_keys=True)}")
@@ -97,19 +142,19 @@ def cmd_train(args):
         while args.iterations == 0 or done < args.iterations:
             if _is_ga(trainer) and trainer.state.timesteps_so_far >= trainer.config.timesteps:
                 break  # the GA's timestep budget is spent
-            if args.profile_dir and (done == args.iterations - 1 or args.iterations == 0 and done == 0):
+            if writes and args.profile_dir and (done == args.iterations - 1 or args.iterations == 0 and done == 0):
                 stats = profile_generation(trainer, args.profile_dir)
             else:
                 stats = trainer.train_step()
             done += 1
             generation = _generations(trainer)
-            if snap_path and args.snapshot_freq and generation % args.snapshot_freq == 0:
+            if writes and snap_path and args.snapshot_freq and generation % args.snapshot_freq == 0:
                 save_snapshots(trainer, args.log_dir, stats)
-        if snap_path:
+        if writes and snap_path:
             checkpoint.save_trainer(snap_path, trainer)
     finally:
         trainer.close()
-        if args.log_dir:
+        if args.log_dir and writes:
             tlogger.stop()
     return trainer
 

@@ -284,6 +284,14 @@ def save_policy_snapshot_auto(log_dir: str, trainer, iteration: int, rew=None) -
 # --------------------------------------------------------- trainer snapshots
 
 
+def trainer_type(trainer) -> str:
+    """The snapshot's trainer type: the single-device trainer's class name
+    (ESTrainer, NSESTrainer, GATrainer, RSTrainer), a pod trainer's too, so
+    a pod's snapshot resumes in the single trainer and back."""
+    algos = __name__.rsplit(".", 2)[0] + ".algos."
+    return next(c.__name__ for c in type(trainer).__mro__ if c.__module__.startswith(algos))
+
+
 def save_trainer(path: str, trainer) -> None:
     """The port's trainer snapshot of an ES, NS-ES, GA or RS trainer (see
     the module docstring)."""
@@ -293,7 +301,7 @@ def save_trainer(path: str, trainer) -> None:
 
     state: Dict[str, Any] = {
         "format": FORMAT,
-        "type": type(trainer).__name__,
+        "type": trainer_type(trainer),
         "cutoff": trainer.cutoff._asdict(),
         "ref_batch": _host(trainer.ref_batch),
         "generator": trainer.gen.get_state().numpy(),
@@ -336,8 +344,8 @@ def load_trainer(path: str, trainer) -> None:
             f"{path} is not a trainer snapshot of the port (the JAX package's hold a threefry key and its own "
             "trainer state): policy files (save_policy_snapshot) and GA populations (load_population, "
             "GATrainer.copy_population) transfer between the packages; trainer states do not")
-    if state["type"] != type(trainer).__name__:
-        raise ValueError(f"{path} holds a {state['type']}, not a {type(trainer).__name__}")
+    if state["type"] != trainer_type(trainer):
+        raise ValueError(f"{path} holds a {state['type']}, not a {trainer_type(trainer)}")
     dev = trainer.device
     trainer.cutoff = CutoffState(**state["cutoff"])
     trainer.ref_batch = _device(state["ref_batch"], dev)

@@ -73,7 +73,21 @@ read it (so it is never dropped without a word).
   generation), ``grad_chunk`` (pairs the gradient's plain version gathers
   at a time), ``mirror_crn``; CPU-stack ES only: ``episodes_per_batch``
   and ``timesteps_per_batch`` (the quotas);
-* ``bc_mode`` — NS-ES only: 'final' or 'traj'.
+* ``bc_mode`` — NS-ES only: 'final' or 'traj';
+* ``pod`` — device envs: ``"auto"`` (the default), ``true`` or ``false``;
+  ``host_pod`` — host-engine envs: N ranks emulated in this process
+  (below).
+
+Scale-out (the JAX package's config.py:141-183, parallel/): a device env
+in a ``torch.distributed`` world of more than one rank, or with ``pod:
+true``, gets a device pod (parallel/trainers.py: ``PodESTrainer``,
+``PodGATrainer``, ``PodRSTrainer``, ``PodNSESTrainer``); ``pod: "auto"``
+with ``noise: "virtual"`` stays single, and ``pod: false`` always does. A
+host-engine env in a world of more than one rank gets a host pod
+(parallel/host_pod.py: ``HostPod*Trainer``), one engine pool a rank;
+``host_pod: N`` runs N ranks' blocks one after the other in this process
+(``emulate_procs``). ``pod`` on a host-engine env and ``host_pod`` on a
+device env are refused, as is a device pod on ``noise: virtual``.
 
 A DQN policy's ``nonlin_type`` and ``ac_init_std`` reach the model as its
 ``nonlin_type`` and ``out_std`` (the JAX package's config.py:113-116).
@@ -84,6 +98,7 @@ Not ported yet, and rejected with ``NotImplementedError``: MuJoCo env ids
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Any, Dict, Optional
 
@@ -102,7 +117,7 @@ from . import checkpoint
 _OVERRIDES = {
     "game", "population_size", "episode_cutoff_mode", "env_kwargs", "noise_size", "theta_hbm_budget",
     "num_eval_episodes", "bc_mode", "eval_batch", "grad_chunk", "mirror_crn", "episodes_per_batch",
-    "timesteps_per_batch", "noise", "noise_seed",
+    "timesteps_per_batch", "noise", "noise_seed", "pod", "host_pod",
 }
 _NOISE_SOURCES = ("virtual", "device")
 _ES_OVERRIDES = ("num_eval_episodes", "grad_chunk", "mirror_crn")
@@ -164,6 +179,41 @@ def build_model(policy_type: str, args: Dict[str, Any], env) -> models.Model:
     return cls(num_actions=num_actions, **kwargs)
 
 
+def _pick(ctor, env, overrides: Dict[str, Any]):
+    """The single trainer ``ctor`` or its pod (the JAX package's
+    ``pick_trainer``, config.py:141-183)."""
+    from ..parallel import distributed
+
+    world = distributed.process_count()
+    if getattr(env, "is_host_env", False):
+        if "pod" in overrides:
+            raise ValueError("the 'pod' override applies to device envs; a host-engine env scales by 'host_pod' "
+                             "or by the ranks of a torch.distributed world")
+        emulate = overrides.get("host_pod")
+        if emulate is not None and (isinstance(emulate, bool) or int(emulate) < 1):
+            raise ValueError(f"'host_pod' takes a rank count of at least 1, not {emulate!r}")
+        if not emulate and world <= 1:
+            return ctor
+        from ..parallel import host_pod as hp
+
+        pod_ctor = {ESTrainer: hp.HostPodESTrainer, GATrainer: hp.HostPodGATrainer, RSTrainer: hp.HostPodRSTrainer,
+                    NSESTrainer: hp.HostPodNSESTrainer}[ctor]
+        return functools.partial(pod_ctor, emulate_procs=int(emulate)) if emulate else pod_ctor
+    if "host_pod" in overrides:
+        raise ValueError("the 'host_pod' override applies to host-engine envs; a device env scales by 'pod'")
+    pod = overrides.get("pod", "auto")
+    if pod not in ("auto", True, False):
+        raise ValueError(f"the 'pod' override takes \"auto\", true or false, not {pod!r}")
+    if pod == "auto" and overrides.get("noise") == "virtual":
+        pod = False  # VirtualNoise is wired for the single-device trainers
+    if not (pod is True or (pod == "auto" and world > 1)):
+        return ctor
+    from ..parallel import trainers as pt
+
+    return {ESTrainer: pt.PodESTrainer, GATrainer: pt.PodGATrainer, RSTrainer: pt.PodRSTrainer,
+            NSESTrainer: pt.PodNSESTrainer}[ctor]
+
+
 def default_eval_episodes(cfg: Dict[str, Any]) -> int:
     """The CPU stack's eval_prob as a fixed eval-episode count (the JAX
     package's config.py:272-278)."""
@@ -179,8 +229,8 @@ def load_experiment(
     algo: Optional[str] = None,
     noise_table: Optional[NoiseTable] = None,
 ):
-    """Experiment dict → ready ES, GA or RS trainer on ``device`` (default
-    cuda). ``noise_table``, when given, is used instead of building one
+    """Experiment dict → ready ES, GA, RS or NS-ES trainer, or its pod, on
+    ``device`` (default cuda; a torchrun rank's own card). ``noise_table``, when given, is used instead of building one
     (so a process that runs several experiments builds it once)."""
     overrides = dict(overrides or {})
     unknown = set(overrides) - _OVERRIDES
@@ -247,7 +297,7 @@ def load_experiment(
                 num_test_episodes=int(exp.get("num_test_episodes", 0)),
                 **ga_knobs,
             )
-            ctor = RSTrainer if algo == "rs" else GATrainer
+            ctor = _pick(RSTrainer if algo == "rs" else GATrainer, env, overrides)
             return ctor(env, model, cfg, noise_table=noise_table, seed=seed, device=device)
         if cpu_schema:
             c = exp["config"]
@@ -267,7 +317,7 @@ def load_experiment(
                 **budget,
                 **{k: int(overrides[k]) for k in ("eval_batch", "grad_chunk") if k in overrides},
             )
-            tr = _es_trainer(env, model, cfg, exp, noise_table, seed, device)
+            tr = _es_trainer(env, model, cfg, exp, noise_table, seed, device, overrides)
             init_from = model_args.get("init_from")
             if init_from:  # warm start (es.py:165-167 → policies.py:219-249)
                 tr.theta = checkpoint.initialize_from(init_from, model, tr.theta)
@@ -283,7 +333,7 @@ def load_experiment(
                 **budget,
                 **{k: int(overrides[k]) for k in ("num_eval_episodes", "eval_batch", "grad_chunk") if k in overrides},
             )
-            tr = _es_trainer(env, model, cfg, exp, noise_table, seed, device)
+            tr = _es_trainer(env, model, cfg, exp, noise_table, seed, device, overrides)
             if "load_from" in exp:  # the GA-seeded ES: θ₀ from a pickled seed chain (gpu es.py:164-171)
                 seeds = checkpoint.load_pickle(exp["load_from"].format(**exp))
                 tr.theta = checkpoint.theta_from_seed_chain(model, tr.noise, seeds).to(tr.device)
@@ -299,7 +349,7 @@ def load_experiment(
             timesteps=float(exp.get("timesteps", 1e9)),
             **ga_knobs,
         )
-        ctor = RSTrainer if algo == "rs" else GATrainer
+        ctor = _pick(RSTrainer if algo == "rs" else GATrainer, env, overrides)
         tr = ctor(env, model, cfg, noise_table=noise_table, seed=seed, device=device)
         if "load_population" in exp:  # gpu ga.py:161-162
             tr.copy_population(exp["load_population"])
@@ -349,13 +399,13 @@ def _nses_trainer(env, model, exp: Dict[str, Any], overrides, budget, noise_tabl
         bc_mode=overrides.get("bc_mode", ns.get("bc_mode", default_bc)),
         **budget,
     )
-    return _es_trainer(env, model, cfg, exp, noise_table, seed, device, NSESTrainer)
+    return _es_trainer(env, model, cfg, exp, noise_table, seed, device, overrides, NSESTrainer)
 
 
-def _es_trainer(env, model, cfg: ESConfig, exp: Dict[str, Any], noise_table, seed: int, device,
+def _es_trainer(env, model, cfg: ESConfig, exp: Dict[str, Any], noise_table, seed: int, device, overrides,
                 ctor=ESTrainer) -> ESTrainer:
     opt_cfg = exp.get("optimizer", {"type": "adam", "args": {"stepsize": 0.01}})
-    return ctor(
+    return _pick(ctor, env, overrides)(
         env,
         model,
         cfg,

@@ -156,8 +156,11 @@ def test_config_rejects_what_is_not_ported(tmp_path):
 
     with pytest.raises(NotImplementedError, match="no ALE"):
         config.load_experiment(exp, device="cpu")  # frostbite needs ALE
-    with pytest.raises(ValueError, match="unsupported overrides"):  # parallel/ is not ported
-        config.load_experiment(exp, overrides={"pod": True}, device="cpu")
+    with pytest.raises(ValueError, match="unsupported overrides"):
+        config.load_experiment(exp, overrides={"mesh": 8}, device="cpu")
+    with pytest.raises(ValueError, match="'pod' override applies to device envs"):  # parallel/: host envs scale by host_pod
+        config.load_experiment(exp, overrides={"game": "toy", "pod": True, "noise_size": 3_000_000,
+                                               "env_kwargs": {"batch_size": 4}}, device="cpu")
     tr = config.load_experiment(exp, device="cpu", algo="ga", overrides={  # the GA's round size now acts
         "game": "toy", "eval_batch": 64, "noise_size": 3_000_000, "env_kwargs": {"batch_size": 4}})
     tr.close()
