@@ -181,7 +181,35 @@ ends:
    bit, θ within 1e-6); K1, K2 and K3 must launch in each rank on their
    cases; a ``main train --log_dir`` of maze_es.json in the two ranks,
    where only rank 0 may write. Seconds a generation per rank and arm, and
-   the share of it in collectives.
+   the share of it in collectives;
+28. the vector host engine at the Humanoid's width: one generation of
+   configurations/humanoid.json as it stands through the loader (quota
+   mode: rounds of 32 pairs on 64 slots until 1000 episodes and 100,000
+   steps, σ 0.02, calc_obstat_prob 0.01, 30 eval episodes, the env's
+   1000-step cap) on its own table (the reference stream's first 25M
+   floats), through ``rollout_host`` → ``rollout_host_vec``. The physics is
+   MuJoCo's Humanoid-v5 where gymnasium and mujoco import, else
+   ``StandInHumanoid`` (defined here and nowhere in the package: the
+   Humanoid's widths, seeded numpy dynamics, not physics); the phase's
+   lines say which ("physics"). K2 must launch once and agree with its
+   plain version on the generation's offsets and weights (timed
+   back-to-back and in a CUDA graph); a round's first steps' actions, for
+   8 members, must agree with the CPU's forward on the same θ, obs stats
+   and observations; the obs stat after the update must be the CPU's
+   increment of the same sums. Seconds, env steps/s, and the seconds of
+   the vector rollout's upload, forward and engine step (synced around
+   each); the card's name and power limit;
+29. two iterations of configurations/humanoid_nses.json through the loader
+   (M = 3, k = 10, novelty_prob, the final mass centre as the BC) with its
+   1000 episodes in one round of 1000 slots, on phase 28's engine and
+   table: K2 once an iteration, against its plain version; the archive
+   grows from 3 to 5. Seconds and env steps/s an iteration;
+30. native extras: the engine's ALE backend built against the ALE API stub
+   (``native.build.build_ale_stub``; a scripted counter game, not ALE) and
+   the stress binary without TSAN, side by side with g++; 256 stub slots
+   stepped 100 times (4 actions, 128 RAM bytes, (2, 210, 160) frames,
+   rewards, finished slots reset), their emulator frames per second,
+   EpisodicLife through lives(); the stress binary prints ``stress ok``.
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -2784,6 +2812,372 @@ def type_name(name: str) -> str:
     return ("Pod" if name.startswith("maze") else "HostPod") + base
 
 
+# phases 28-29: the vector host engine at the Humanoid's width
+HUMANOID, HUMANOID_NS = "humanoid.json", "humanoid_nses.json"
+HUMANOID_TABLE = 25_000_000  # phases 28-29's own table: the reference stream's first 25M floats
+NS_SLOTS = 1000  # humanoid_nses.json's 1000 episodes in one round (its population; 64 slots would run 64)
+
+
+class StandInHumanoid:
+    """A stand-in for the MuJoCo Humanoid-v5 engine, used only where
+    gymnasium and mujoco do not import (the card's machine). It has the
+    surface of the port's ``MujocoHostEnv`` that ``rollout_host_vec`` drives,
+    at the Humanoid's widths: 348 float32 observations, 17 continuous
+    actions in [-0.4, 0.4], a 1000-step cap and the mass centre's (x, y) as
+    the final-state BC. Its dynamics are seeded numpy, not physics: a
+    hidden state driven by the actions, a height that drifts down with
+    noise, the episode over when the height leaves [1, 2] (Humanoid-v5's
+    healthy range) or at the cap; reward 5 (alive) + 1.25 · forward
+    velocity − 0.1 · |a|². A result on it is a result of the port's path,
+    never a Humanoid result."""
+
+    is_host_env = True
+    host_obs = "vector"
+    env_id = "StandInHumanoid"
+
+    def __init__(self, batch_size: int = 64, bc_mode: str = "final_pos", seed: int = 0, **_):
+        from deep_neuroevolution_torch.envs.core import Continuous
+
+        if bc_mode != "final_pos":
+            raise ValueError("the stand-in keeps only the final mass centre")
+        self.batch_size, self.bc_dim, self.obs_shape = batch_size, 2, (348,)
+        self.action_space = Continuous(17, (-0.4,) * 17, (0.4,) * 17)
+        self.max_episode_steps = self.default_timestep_cutoff = 1000
+        rs = np.random.RandomState(12345)  # the dynamics, the same in every pool
+        self._M = rs.randn(64, 64) * 0.9 / 8.0
+        self._N = rs.randn(17, 64) * 0.5
+        self._P = rs.randn(64, 345) / 8.0
+        self._W = rs.randn(17, 2) * 0.25
+        self._u = rs.randn(17) / np.sqrt(17.0)
+        self._h = np.zeros((batch_size, 64))
+        self._z = np.zeros(batch_size)
+        self._xy = np.zeros((batch_size, 2))
+        self._v = np.zeros((batch_size, 2))
+        self._t = np.zeros(batch_size, np.int64)
+        self._noise = np.zeros((batch_size, 1000))
+        self._obs = np.zeros((batch_size, 348), np.float32)
+        self._rng = np.random.default_rng(seed)
+
+    def _observe(self, idx) -> None:
+        self._obs[idx, 0] = self._z[idx]
+        self._obs[idx, 1:3] = self._v[idx]
+        self._obs[idx, 3:] = self._h[idx] @ self._P
+
+    def reset(self, indices=None, seeds=None) -> None:
+        idx = np.arange(self.batch_size) if indices is None else np.asarray(indices)
+        if seeds is None:
+            seeds = self._rng.integers(0, 2**31 - 1, size=idx.size)
+        for i, s in zip(idx.tolist(), seeds):
+            rng = np.random.default_rng(int(s))
+            self._h[i] = rng.normal(0.0, 0.1, 64)
+            self._z[i] = 1.4 + rng.uniform(-0.01, 0.01)
+            self._xy[i] = rng.uniform(-0.01, 0.01, 2)
+            self._v[i] = 0.0
+            self._noise[i] = rng.normal(0.0, 1.0, 1000)
+            self._t[i] = 0
+        self._observe(idx)
+
+    def step(self, actions, indices=None):
+        idx = np.arange(self.batch_size) if indices is None else np.asarray(indices)
+        a = np.clip(np.asarray(actions, np.float64), -0.4, 0.4)
+        self._h[idx] = np.tanh(self._h[idx] @ self._M + a @ self._N)
+        self._v[idx] = a @ self._W
+        self._xy[idx] += 0.015 * self._v[idx]
+        self._z[idx] += 0.02 * self._noise[idx, self._t[idx]] - 0.0025 + 0.01 * (a @ self._u)
+        self._t[idx] += 1
+        self._observe(idx)
+        z = self._z[idx]
+        done = (z < 1.0) | (z > 2.0) | (self._t[idx] >= 1000)
+        rew = 5.0 + 1.25 * self._v[idx, 0] - 0.1 * np.square(a).sum(axis=1)
+        return rew.astype(np.float32), done
+
+    def observe(self):
+        return self._obs
+
+    def final_state(self):
+        return self._xy.astype(np.float32)
+
+    def close(self) -> None:
+        pass
+
+
+@contextlib.contextmanager
+def humanoid_engine():
+    """The physics the MuJoCo phases run on: "mujoco" where gymnasium and
+    mujoco import (the loader's own MujocoHostEnv), else "stand-in" (the
+    loader's env resolution handed ``StandInHumanoid`` for the MuJoCo ids,
+    while the context is open)."""
+    from deep_neuroevolution_torch.envs import mujoco
+    from deep_neuroevolution_torch.utils import config
+
+    if mujoco.is_available():
+        yield "mujoco"
+        return
+    real = config.resolve_env
+
+    def resolve(env_id, **kwargs):
+        if env_id.split("-")[0] in mujoco.MUJOCO_FAMILIES:
+            return StandInHumanoid(**kwargs)
+        return real(env_id, **kwargs)
+
+    config.resolve_env = resolve
+    try:
+        yield "stand-in"
+    finally:
+        config.resolve_env = real
+
+
+@contextlib.contextmanager
+def record_round(n_members: int = 8, n_steps: int = 4):
+    """The first host rollout's first ``n_steps`` steps while the context is
+    open: the first ``n_members`` members' θ, the obs stats' mean and std,
+    and each step's observations and actions (noise included), on the
+    host."""
+    from deep_neuroevolution_torch.algos import es
+
+    real, rec = es.rollout_host, {"steps": []}
+
+    def rollout(henv, act_fn, params, *a, **kw):
+        if "thetas" in rec:
+            return real(henv, act_fn, params, *a, **kw)
+        thetas, ctx = params
+        rec.update(thetas=thetas[:n_members].cpu(), mean=ctx.ob_mean.cpu(), std=ctx.ob_std.cpu())
+
+        def act(p, obs):
+            out = act_fn(p, obs)
+            if len(rec["steps"]) < n_steps:
+                rec["steps"].append((obs[:n_members].cpu(), out[:n_members].cpu()))
+            return out
+
+        act.prepare = act_fn.prepare
+        return real(henv, act, params, *a, **kw)
+
+    es.rollout_host = rollout
+    try:
+        yield rec
+    finally:
+        es.rollout_host = real
+
+
+@contextlib.contextmanager
+def record_increments():
+    """The (stat, sums, count) of every obs-stat increment, and its result,
+    on the host, while the context is open."""
+    from deep_neuroevolution_torch.ops import obstat
+
+    real, seen = obstat.increment, []
+
+    def increment(stat, s, ssq, c):
+        out = real(stat, s, ssq, c)
+        host = lambda t: tuple(x.cpu() for x in t)  # noqa: E731
+        seen.append((host(stat), s.cpu(), ssq.cpu(), float(c), host(out)))
+        return out
+
+    obstat.increment = increment
+    try:
+        yield seen
+    finally:
+        obstat.increment = real
+
+
+def check_round_actions(model, rec: dict, device) -> dict:
+    """The recorded round's actions against the port's CPU forward on the
+    same θ, obs stats and observations: the card's noiseless forward within
+    1e-5 + 1e-4·max|a| of the CPU's (float32 products in another order),
+    and each recorded action within 6·ac_noise_std of the noiseless one (the
+    action noise, N(0, 1)·ac_noise_std a slot)."""
+    import torch
+
+    from deep_neuroevolution_torch.models.mlp import MLPContext
+
+    def forward(obs, dev):
+        ctx = MLPContext(rec["mean"].to(dev), rec["std"].to(dev), 0.0)
+        return model.make_batch_act()((rec["thetas"].to(dev), ctx), obs.to(dev)).cpu()
+
+    errs, noise = [], []
+    for obs, acts in rec["steps"]:
+        card, cpu = forward(obs, device), forward(obs, torch.device("cpu"))
+        errs.append(float((card - cpu).abs().max()))
+        tol = 1e-5 + 1e-4 * float(cpu.abs().max())
+        require(errs[-1] <= tol, f"humanoid: card forward disagrees with the CPU's: {errs[-1]} > {tol}")
+        noise.append(float((acts - cpu).abs().max()))
+        require(noise[-1] <= 6 * model.ac_noise_std + tol, f"humanoid: recorded actions {noise[-1]} off the forward")
+    require(len(errs) > 0, "humanoid: no step recorded")
+    return dict(steps=len(errs), members=int(rec["thetas"].shape[0]), card_vs_cpu_max_abs_err=max(errs),
+                recorded_minus_noiseless_max=max(noise))
+
+
+def run_humanoid_es(device, table, k2_l2_rate: float) -> dict:
+    """Phase 28: one generation of configurations/humanoid.json as it
+    stands through the loader (quota mode: rounds of 32 pairs on 64 slots
+    until 1000 episodes and 100,000 steps; σ 0.02, calc_obstat_prob 0.01,
+    30 eval episodes, the env's 1000-step cap) on phases 28-29's table: K2
+    launches once and agrees with its plain version on the generation's
+    offsets and weights (timed back-to-back and in a graph); a round's
+    actions agree with the CPU forward; the obs stat after the update is the
+    CPU's increment of the same sums. The seconds of rollout_host_vec's
+    upload, forward and engine step (synced around each)."""
+    import torch
+
+    from deep_neuroevolution_torch.algos import rollout_host
+    from deep_neuroevolution_torch.ops import obstat
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / HUMANOID).read_text())
+    with humanoid_engine() as physics:
+        tr = config.load_experiment(exp, device=device, noise_table=table)
+    cfg = tr.config
+    print(f"humanoid: {type(tr.env).__name__} ({physics}) slots={tr.env.batch_size} {type(tr.model).__name__} "
+          f"D={tr.model.num_params} {json.dumps(dataclasses.asdict(cfg))}", flush=True)
+    require(tr.quota_mode and tr.model.num_params == 159_505 and tr.env.obs_shape == (348,), "humanoid: not the file")
+    zero_counters()
+    rollout_host.vec_timings = timings = {}
+    try:
+        with record_k2() as seen, record_round() as rec, record_increments() as incs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = tr.train_step()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_counters()
+    finally:
+        rollout_host.vec_timings = None
+        tr.close()
+    episodes, steps = int(st.lengths.size), int(st.lengths.sum())
+    npairs = tr._npairs_round()
+    require(episodes >= cfg.episodes_per_batch and steps >= cfg.timesteps_per_batch, "humanoid: quotas not met")
+    require(launches["noise_gradient"] == len(seen) == 1, f"humanoid: K2 launched {launches['noise_gradient']} times")
+    idx, w = seen[0]
+    require(idx.shape[0] == episodes // 2, "humanoid: K2 did not sum every pair")
+    actions = check_round_actions(tr.model, rec, device)
+    require(len(incs) == 1, f"humanoid: {len(incs)} obs-stat increments")
+    stat, s, ssq, c, out = incs[0]
+    cpu = obstat.increment(obstat.RunningStat(*stat), s, ssq, c)
+    require(all(torch.equal(a, b) and torch.equal(a, t.cpu()) for a, b, t in zip(cpu, out, tr.ob_stat)),
+            "humanoid: the obs stat is not the CPU's increment of the same sums")
+    require(c > 0 and bool(np.isfinite(st.returns).all()) and bool(torch.isfinite(tr.theta).all()),
+            "humanoid: no obs sampled, or not finite")
+    total = sum(timings[k] for k in ("upload", "forward", "env_step"))
+    out_row = dict(
+        config=HUMANOID, physics=physics, engine=type(tr.env).__name__, slots=tr.env.batch_size,
+        pairs_a_round=npairs, rounds=episodes // (2 * npairs), episodes=episodes, timesteps=steps,
+        eval_episodes=int(st.eval_returns.size), seconds=seconds, env_steps_per_s=steps / seconds,
+        length_mean=float(st.lengths.mean()), length_min=int(st.lengths.min()), length_max=int(st.lengths.max()),
+        return_mean=float(st.returns.mean()), ob_count=c,
+        vec_seconds={k: timings[k] for k in ("upload", "forward", "env_step")},
+        vec_share={k: timings[k] / total for k in ("upload", "forward", "env_step")},
+        vec_rollout_steps=timings["steps"], vec_slot_steps=timings["slot_steps"], actions=actions,
+    )
+    print("humanoid_es_generation " + json.dumps(out_row), flush=True)
+    row = k2_case(device, table.noise, idx, w, tr.model.num_params, k2_l2_rate)
+    return dict(stats=out_row, launches=launches, k2=row)
+
+
+def run_humanoid_ns(device, table, k2_l2_rate: float, iterations: int = 2) -> dict:
+    """Phase 29: two iterations of configurations/humanoid_nses.json through
+    the loader (M = 3, k = 10, novelty_prob, the final mass centre as the
+    BC) with its 1000 episodes in one round of 1000 slots, on phases
+    28-29's table: K2 launches once an iteration and agrees with its plain
+    version on each; the archive grows by one point an iteration. Seconds
+    and env steps/s an iteration."""
+    import torch
+
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / HUMANOID_NS).read_text())
+    with humanoid_engine() as physics:
+        t0 = time.perf_counter()
+        tr = config.load_experiment(exp, overrides={"env_kwargs": {"batch_size": NS_SLOTS}}, device=device,
+                                    noise_table=table)
+        setup = time.perf_counter() - t0
+    try:
+        require(tr._archive_size() == 3 and tr.config.bc_mode == "final" and tr._npairs_round() == NS_SLOTS // 2,
+                "humanoid_nses: not the file's NS-ES")
+        rows, errs = [], []
+        zero_counters()
+        with record_k2() as seen:
+            for it in range(iterations):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = tr.train_step()
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                steps = int(st.lengths.sum())
+                rows.append(dict(iteration=it + 1, parent=st.parent, seconds=sec, episodes=int(st.lengths.size),
+                                 timesteps=steps, env_steps_per_s=steps / sec, novelty_mean=float(st.novelty.mean()),
+                                 archive=tr._archive_size()))
+                require(tr._archive_size() == 4 + it, f"humanoid_nses: archive of {tr._archive_size()}")
+            launches = read_counters()
+        require(launches["noise_gradient"] == len(seen) == iterations, "humanoid_nses: K2 not once an iteration")
+        for idx, w in seen:
+            errs.append(check_k2(table.noise, idx, w, tr.model.num_params))
+        require(all(bool(torch.isfinite(p.theta).all()) for p in tr.parents), "humanoid_nses: θ not finite")
+    finally:
+        tr.close()
+    out = dict(config=HUMANOID_NS, physics=physics, engine=type(tr.env).__name__, slots=tr.env.batch_size,
+               setup_seconds=setup, iterations=rows, k2_errs=errs)
+    print("humanoid_nses_run " + json.dumps(out), flush=True)
+    row = k2_case(device, table.noise, *seen[-1], tr.model.num_params, k2_l2_rate)
+    return dict(stats=out, launches=launches, k2=row)
+
+
+def run_native_extras() -> dict:
+    """Phase 30: the engine's ALE backend built against the ALE API stub
+    (``build_ale_stub``; a scripted counter game, not ALE) and the stress
+    binary without TSAN (``build_stress(tsan=False)``), built side by side
+    with g++. 256 stub slots stepped 100 times (finished slots reset) with
+    the JAX package's tests/test_atari_path.py:383-418 checks and their
+    emulator frames per second; EpisodicLife through lives(); the stress
+    binary must print ``stress ok``."""
+    from deep_neuroevolution_torch.native import build
+    from deep_neuroevolution_torch.native.bridge import HostBatchEnv
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        stub_f, stress_f = pool.submit(build.build_ale_stub), pool.submit(build.build_stress, False)
+        so, stress = stub_f.result(), stress_f.result()
+    build_s = time.perf_counter() - t0
+    B, steps, rs = 256, 100, np.random.RandomState(0)
+    env = HostBatchEnv("ale", "stub.rom", batch_size=B, lib_path=str(so))
+    try:
+        require(env.num_actions == 4 and env.final_state_size == 128, "ale stub: actions or RAM size")
+        require((env.frames_per_obs, env.height, env.width) == (2, 210, 160), "ale stub: frame shape")
+        env.reset(rs.randint(1, 31, B).astype(np.int32), max_frames=10_000)
+        total_rew, dones = 0.0, 0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            r, d = env.step(rs.randint(0, 4, B).astype(np.int32))
+            obs = env.observe()
+            ram = env.final_state()
+            total_rew += float(r.sum())
+            dones += int(d.sum())
+            if d.any():
+                idx = np.nonzero(d)[0].astype(np.int32)
+                env.reset(rs.randint(1, 31, idx.size).astype(np.int32), indices=idx, max_frames=10_000)
+        sec = time.perf_counter() - t0
+        require(obs.shape == (B, 2, 210, 160) and obs.any() and ram.shape == (B, 128), "ale stub: observations")
+        require(total_rew > 0 and dones > 0, f"ale stub: reward {total_rew}, {dones} episodes ended")
+    finally:
+        env.close()
+    env = HostBatchEnv("ale", "stub.rom", batch_size=1, num_threads=1, episodic_life=True, lib_path=str(so))
+    try:
+        env.reset(np.array([1], np.int32), max_frames=10_000)
+        n = 0
+        while n < 100 and not bool(env.step(np.zeros(1, np.int32))[1][0]):
+            n += 1
+        require(n < 100 and int(env.final_state()[0, 2]) == 2, "ale stub: EpisodicLife did not end on a life lost")
+    finally:
+        env.close()
+    p = subprocess.run([str(stress)], capture_output=True, text=True, timeout=120)
+    require(p.returncode == 0 and "stress ok" in p.stdout, f"stress binary: {p.returncode} {p.stderr[-500:]}")
+    out = dict(build_seconds=build_s, stub_library=str(so.relative_to(ROOT)),
+               stress_binary=str(stress.relative_to(ROOT)),
+               slots=B, steps=steps, seconds=sec, frames_per_s=4 * B * steps / sec, episodes_ended=dones,
+               reward=total_rew, stress=p.stdout.strip())
+    print("native_extras " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3041,6 +3435,19 @@ def main() -> int:
     with Phase("two ranks sharing the card over gloo: device and host pods against their emulation"):
         pod_two = run_pod_two_ranks(device)
     print("pod_two_ranks " + json.dumps(pod_two), flush=True)
+
+    with Phase("the vector host engine: one humanoid.json generation"):
+        htable = NoiseTable.from_seed(count=HUMANOID_TABLE, device=device)
+        humanoid = run_humanoid_es(device, htable, k2["l2_bytes_per_s"])
+        print(f"humanoid card: {smi}", flush=True)
+    with Phase("the vector host engine: two humanoid_nses.json iterations"):
+        humanoid_ns = run_humanoid_ns(device, htable, k2["l2_bytes_per_s"])
+    del htable
+    torch.cuda.empty_cache()
+    with Phase("native extras: the ALE-stub engine and the stress binary"):
+        run_native_extras()
+    for key, run in (("humanoid_es", humanoid), ("humanoid_nses", humanoid_ns)):
+        device_paths[key] = dict(k2_path_row(run["launches"], run["k2"]), physics=run["stats"]["physics"])
     device_paths["pod1_maze_es"] = dict(launches=pod_one["es"]["launches"]["noise_gradient"], B=256, D=498)
     for case, row in pod_two["cases"].items():
         for r in (0, 1):

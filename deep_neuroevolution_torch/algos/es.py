@@ -46,9 +46,19 @@ episode length (``_mean_len_est``, the cutoff at first), runs them, reads
 their lengths, and tops up until both quotas are met; then the update and
 the eval episodes of the pre-update θ (``_update_and_eval``'s order).
 
-``mirror_crn`` (host engine): a pair's θ+σε and θ−σε share the noop count
+``mirror_crn`` (Atari engine): a pair's θ+σε and θ−σε share the noop count
 and the engine episode seed (rollout_host.py ``mirror_pairs``). On a device
 env a pair always starts from one reset state, so it changes nothing there.
+
+The host arm runs the Atari engine and the vector engines (MuJoCo) through
+rollout_host.py's ``rollout_host``. A model that normalizes observations
+(the MujocoMLP) gets the obs stats' mean and std in its context and, in a
+training round, action noise from a generator on the device seeded with
+the round's rollout seed, every slot its own draws (the JAX package's
+per-slot keys; unlike the device arm, a pair does not share them). The
+round's obs sums (each rollout with probability ``calc_obstat_prob`` when
+it lies in (0, 1), the padded copies of the last member left out) merge
+into the running stats after the update, as on the device arm.
 
 Host-side draws (θ init, noise offsets, rollout seeds) come from one CPU
 ``torch.Generator`` seeded with ``seed``; ``_draw_round`` is the single
@@ -56,8 +66,6 @@ place a round's randomness is drawn, ``_draw_eval_seed`` the eval
 episodes'. On a device env a rollout seed seeds a generator on the device
 (``_episode_starts``) for the episodes' reset states, action noise and
 obs-stat sampling.
-
-Not ported yet: obs stats on the host engine.
 """
 
 from __future__ import annotations
@@ -79,7 +87,7 @@ from ..ops.noise_gradient import noise_gradient
 from ..utils import tabular as tlogger
 from ..utils import vine
 from .rollout import collect_ref_batch, index_state, paired_reset, rollout_batch
-from .rollout_host import collect_ref_batch_host, rollout_host_batch
+from .rollout_host import collect_ref_batch_host, rollout_host
 
 
 @dataclasses.dataclass
@@ -168,8 +176,6 @@ class ESTrainer:
         device=None,
     ):
         self.is_host_env = getattr(env, "is_host_env", False)
-        if self.is_host_env and model.needs_ob_stat:
-            raise NotImplementedError("obs stats on the host engine are not ported yet")
         self.device = resolve_device(device)
         self.env = env
         self.model = model
@@ -264,51 +270,81 @@ class ESTrainer:
             return None
         return MLPContext(obstat.mean(self.ob_stat), obstat.std(self.ob_stat), 1.0 if noisy else 0.0, gen, paired)
 
+    def _obstat_args(self) -> dict:
+        """Whether a training round collects obs sums, and each rollout's
+        probability of joining them (es.py:356-363; None: every rollout)."""
+        p = self.config.calc_obstat_prob
+        return dict(collect_obstat=self.model.needs_ob_stat and p > 0, obstat_prob=p if 0.0 < p < 1.0 else None)
+
+    def _host_params(self, thetas: torch.Tensor, noisy: bool, seed: int, ob_stat=None):
+        """``(thetas, stats or context)`` of a host rollout: a VBN model's
+        reference stats (one member's, expanded, when every row is θ), an
+        obs-normalizing model's context (action noise from a device
+        generator seeded with ``seed`` when ``noisy``), else None."""
+        if self.model.needs_ref_batch:
+            if noisy:
+                return thetas, self.model.batch_ref_stats(thetas, self.ref_batch)
+            one = self.model.batch_ref_stats(thetas[:1], self.ref_batch)
+            n = thetas.shape[0]
+            return thetas, type(one)(*(tuple(x.expand(n, -1) for x in f) for f in one))
+        if self.model.needs_ob_stat:
+            st = self.ob_stat if ob_stat is None else ob_stat
+            gen = self._episode_gen(seed) if noisy else None
+            return thetas, MLPContext(obstat.mean(st), obstat.std(st), 1.0 if noisy else 0.0, gen, False)
+        return thetas, None
+
     def _host_rollout(self, npairs: int, collect_bc_traj: bool = False, draws=None):
         """θ±σε for ``npairs`` pairs on the first ``2·npairs`` engine slots;
         the reference stats are computed for those members only, and
-        unused slots run copies of the last member and its stats; with
-        ``mirror_crn`` a pair's slots share their draws. ``draws`` is the
-        round's ``_draw_round`` when the caller made it. Returns (idxs, the
-        engine's RolloutResult over every slot)."""
+        unused slots run copies of the last member and its stats, left out
+        of the obs sums; with ``mirror_crn`` a pair's slots share their
+        draws. ``draws`` is the round's ``_draw_round`` when the caller made
+        it. Returns (idxs, the engine's RolloutResult over every slot)."""
         idxs, seed = draws if draws is not None else self._draw_round(npairs)
         thetas = self._perturbed(idxs)
         with record_function("es.ref_stats"):
-            stats = self.model.batch_ref_stats(thetas, self.ref_batch) if self.model.needs_ref_batch else None
-        if 2 * npairs < self.env.batch_size:
-            pad = self.env.batch_size - 2 * npairs
+            thetas, stats = self._host_params(thetas, True, seed)
+        B, valid = self.env.batch_size, None
+        if 2 * npairs < B:
+            pad = B - 2 * npairs
             thetas = torch.cat([thetas, thetas[-1:].expand(pad, -1)])
-            if stats is not None:
+            if self.model.needs_ref_batch:
                 stats = type(stats)(*(tuple(torch.cat([x, x[-1:].expand(pad, -1)]) for x in f) for f in stats))
+            valid = np.arange(B) < 2 * npairs
         with record_function("es.rollout"):
-            res = rollout_host_batch(
+            res = rollout_host(
                 self.env, self.model.make_batch_act(), (thetas, stats), seed, int(self.cutoff.tslimit), self.device,
                 collect_bc_traj=collect_bc_traj, mirror_pairs=npairs if self.config.mirror_crn else 0,
+                obstat_valid=valid, **self._obstat_args(),
             )
         return idxs, res
+
+    def _ob_sums(self, res):
+        """A rollout's obs sums on the device (None, None, 0.0 when it
+        collected none)."""
+        if res.ob_sum is None:
+            return None, None, 0.0
+        to = lambda x: torch.from_numpy(x).to(self.device)  # noqa: E731
+        return to(res.ob_sum), to(res.ob_sumsq), float(res.ob_count)
 
     def _host_round(self, npairs: int, draws=None):
         """One antithetic round (``_host_rollout``). Returns (idxs, returns
         [n,2], sign returns [n,2], lengths [n,2], bc [n,2,·], engine episode
-        seeds [n,2]) as numpy."""
+        seeds [n,2]) as numpy, then ob_sum, ob_sumsq (device tensors or
+        None) and ob_count."""
         idxs, res = self._host_rollout(npairs, draws=draws)
-        return idxs, *(pair_columns(x, npairs) for x in (res.returns, res.sign_returns, res.lengths, res.bc,
-                                                          res.ep_seeds))
+        return (idxs, *(pair_columns(x, npairs) for x in (res.returns, res.sign_returns, res.lengths, res.bc,
+                                                           res.ep_seeds)), *self._ob_sums(res))
 
     def _host_eval(self, seed: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Noiseless episodes of θ on the first ``n = min(num_eval_episodes,
         slots)`` engine slots, every slot with θ and one member's reference
-        stats (es.py:588-611). Returns (returns [n], lengths [n], bc [n, ·])."""
+        stats (es.py:588-611), or the obs stats. Returns (returns [n],
+        lengths [n], bc [n, ·])."""
         n = min(self.config.num_eval_episodes, self.env.batch_size)
-        thetas = self.theta[None].expand(n, -1)
-        stats = None
-        if self.model.needs_ref_batch:
-            one = self.model.batch_ref_stats(self.theta[None], self.ref_batch)
-            stats = type(one)(*(tuple(x.expand(n, -1) for x in f) for f in one))
-        res = rollout_host_batch(
-            self.env, self.model.make_batch_act(), (thetas, stats), seed, int(self.cutoff.tslimit), self.device,
-            n_slots=n,
-        )
+        params = self._host_params(self.theta[None].expand(n, -1), False, seed)
+        res = rollout_host(self.env, self.model.make_batch_act(), params, seed, int(self.cutoff.tslimit), self.device,
+                           n_slots=n)
         return res.returns[:n], res.lengths[:n], res.bc[:n]
 
     def _device_params(self, thetas: torch.Tensor, ctx):
@@ -407,9 +443,9 @@ class ESTrainer:
             timesteps += int(rounds[-1][3].sum())
             if self._quotas_met(episodes, timesteps) if self.quota_mode else episodes >= target:
                 break
-        idxs, *columns = zip(*rounds)
-        noise_idxs = torch.cat(idxs)
-        returns_n2, srets_n2, lengths_n2, bc_n2, seeds_n2 = (np.concatenate(c) for c in columns)
+        noise_idxs = torch.cat([r[0] for r in rounds])
+        returns_n2, srets_n2, lengths_n2, bc_n2, seeds_n2 = (np.concatenate([r[i] for r in rounds])
+                                                             for i in range(1, 6))
         with record_function("es.update"):
             g, opt_state, theta, ratio = self._compute_update(noise_idxs, returns_n2, srets_n2)
         gnorm = float(torch.sum(g * g))
@@ -417,10 +453,21 @@ class ESTrainer:
         if eval_seed is not None:
             with record_function("es.eval"):
                 eval_rets, eval_lens, eval_bc = self._host_eval(eval_seed)  # θ before the update
+        ob_count = self._merge_ob_sums(rounds)
         return self._finalize_generation(
-            opt_state, theta, float(ratio), gnorm, returns_n2, lengths_n2, bc_n2, eval_rets, eval_lens, 0.0,
+            opt_state, theta, float(ratio), gnorm, returns_n2, lengths_n2, bc_n2, eval_rets, eval_lens, ob_count,
             step_tstart, noise_idxs, seeds_n2, eval_bc, eval_seed,
         )
+
+    def _merge_ob_sums(self, rounds) -> float:
+        """The rounds' obs sums (columns 6-8), added in round order from
+        zero, into the running stats when the model keeps them and
+        ``calc_obstat_prob`` > 0 (es.py:246-248). Returns the count."""
+        count = sum(r[8] for r in rounds)
+        if rounds[0][6] is not None and self.model.needs_ob_stat and count > 0 and self.config.calc_obstat_prob > 0:
+            ob_sum, ob_sumsq = (sum(r[i] for r in rounds) for i in (6, 7))
+            self.ob_stat = obstat.increment(self.ob_stat, ob_sum, ob_sumsq, count)
+        return float(count)
 
     def _device_rounds(self, npairs: int, obstat_prob: Optional[float]) -> list:
         """A generation's rounds on the device env: a fixed population's

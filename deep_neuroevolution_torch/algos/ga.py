@@ -8,8 +8,9 @@ loop (gpu_implementation/ga.py:104-280):
   row (ga.py:122-129); the first generation draws fresh genomes
   θ = ε·scale_by (base.py:121-125);
 * fitness = one episode each, in rounds capped so one round's ``[chunk, D]``
-  f32 θ stays under ``theta_hbm_budget`` bytes: on the engine's slots, each
-  round padded to a power-of-two slot bucket (``_eval_host``), or on a
+  f32 θ stays under ``theta_hbm_budget`` bytes: on the engine's slots (the
+  Atari engine or a vector engine, through ``rollout_host``), each round
+  padded to a power-of-two slot bucket (``_eval_host``), or on a
   device env in rounds of ``eval_batch`` members (all of them when 0),
   each member's episode from its own reset state (``_eval_device``, the
   JAX package's ``_ga_gen_rounds`` and ``_eval_thetas``, through
@@ -66,7 +67,7 @@ from ..utils import tabular as tlogger
 from ..utils import vine
 from .es import parse_cutoff, update_cutoff
 from .rollout import collect_ref_batch, rollout_batch
-from .rollout_host import collect_ref_batch_host, rollout_host_batch
+from .rollout_host import collect_ref_batch_host, rollout_host
 
 
 @dataclasses.dataclass
@@ -253,7 +254,7 @@ class GATrainer:
         if n < nb:
             thetas = torch.cat([thetas, thetas[-1:].expand(nb - n, -1)])
         stats = self.model.batch_ref_stats(thetas, self.ref_batch) if self.model.needs_ref_batch else None
-        res = rollout_host_batch(
+        res = rollout_host(
             self.env, self.model.make_batch_act(), (thetas, stats), seed, int(tslimit), self.device,
             n_slots=nb if nb < B else None,
         )

@@ -19,14 +19,18 @@ es_distributed/nses.py:
 
 The trainer is ESTrainer's with the current parent's state loaded into it:
 a round is ES's device round (pairs from one reset state) or host round
-(the reference stats for the real members only, spare slots running copies
-of the last), and the update is ES's, with the novelty ranks.
+(the Atari engine or a vector engine such as MuJoCo's; the reference
+stats for the real members only, spare slots running copies of the last
+and left out of the obs sums), and the update is ES's, with the novelty
+ranks. The round's obs sums merge into the current parent's stats.
 
 BCs: ``bc_mode='final'`` keeps the final-state BC (the maze's x-y, the
-engine's final RAM) in a device ``Archive`` (ops/novelty.py);
-``bc_mode='traj'`` is the Atari per-step RAM trajectory
-(ESAtariPolicy.rollout, policies.py:410-418), host engine only, kept in a
-host list and scored with the length-tolerant float64 k-NN.
+Atari engine's final RAM, the MuJoCo engine's final mass centre or its
+padded x-y trajectory, the env's ``bc_mode``) in a device ``Archive``
+(ops/novelty.py); ``bc_mode='traj'`` is the Atari per-step RAM trajectory
+(ESAtariPolicy.rollout, policies.py:410-418), the Atari engine only (the
+JAX package's nses.py:205-208), kept in a host list and scored with the
+length-tolerant float64 k-NN.
 
 On a device env whose model keeps no obs stats, every parent's mean BC
 comes from one rollout of M·num_rollouts slots (the JAX package's
@@ -39,7 +43,7 @@ generator seeded from it; JAX's threefry draws cannot be reproduced.
 
 The noise source is a table or a ``VirtualNoise``, through ES's
 perturbation and gradient (the JAX package's ``_table_arg``, nses.py:88-95,
-248-251). The pod trainers are in parallel/. Not ported yet: MuJoCo.
+248-251). The pod trainers are in parallel/.
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ from ..ops import fitness, novelty, obstat
 from ..utils import tabular as tlogger
 from .es import ESConfig, ESTrainer, pair_columns, update_cutoff
 from .rollout import rollout_batch
-from .rollout_host import rollout_host_batch
+from .rollout_host import rollout_host
 
 
 @dataclasses.dataclass
@@ -104,8 +108,10 @@ class NSESTrainer(ESTrainer):
             raise NotImplementedError(f"selection_method {config.selection_method!r}")
         if config.bc_mode not in ("final", "traj"):
             raise ValueError(f"bc_mode must be 'final' or 'traj', not {config.bc_mode!r}")
-        if config.bc_mode == "traj" and not getattr(env, "is_host_env", False):
-            raise ValueError("bc_mode='traj' is the Atari RAM-per-step BC: host engines only")
+        if config.bc_mode == "traj" and not (getattr(env, "is_host_env", False)
+                                             and getattr(env, "host_obs", "image") == "image"):
+            raise ValueError("bc_mode='traj' is the Atari RAM-per-step BC: Atari host engines only, "
+                             "not a device env or a vector engine (MuJoCo)")
         if config.algo_type == "ns" and config.return_proc_mode == "centered_rank":
             # novelty rides the sign returns (nses.py:381-387), and
             # 'centered_rank' ranks the reward: pure NS with it is ES
@@ -159,15 +165,10 @@ class NSESTrainer(ESTrainer):
         if not self.is_host_env:
             return self._device_mean_bcs(par.theta[None], par.ob_stat)[0]
         n = min(self.config.num_rollouts, self.env.batch_size)
-        thetas = par.theta[None].expand(n, -1)
-        stats = None
-        if self.model.needs_ref_batch:
-            one = self.model.batch_ref_stats(par.theta[None], self.ref_batch)
-            stats = type(one)(*(tuple(x.expand(n, -1) for x in f) for f in one))
-        res = rollout_host_batch(
-            self.env, self.model.make_batch_act(), (thetas, stats), self._draw_seed(), int(self.cutoff.tslimit_max),
-            self.device, n_slots=n, collect_bc_traj=self.traj_bc,
-        )
+        seed = self._draw_seed()
+        params = self._host_params(par.theta[None].expand(n, -1), False, seed, par.ob_stat)
+        res = rollout_host(self.env, self.model.make_batch_act(), params, seed, int(self.cutoff.tslimit_max),
+                           self.device, n_slots=n, collect_bc_traj=self.traj_bc)
         if self.traj_bc:
             trs = res.bc_traj[:n]
             L = min(t.shape[0] for t in trs)
@@ -228,7 +229,7 @@ class NSESTrainer(ESTrainer):
                 bcs = pair_columns(res.bc, npairs)
                 nov = self._archive_novelty(torch.from_numpy(res.bc[: 2 * npairs]))
         return (idxs, pair_columns(res.returns, npairs), pair_columns(nov, npairs), pair_columns(res.lengths, npairs),
-                bcs, None, None, 0.0)  # no obs stats on the host engine
+                bcs, *self._ob_sums(res))
 
     def train_step(self) -> NSStats:
         """One iteration: the current parent's round and update, the

@@ -1,8 +1,12 @@
 """Atari env family on the C++ batched host engine.
 
-The counterpart of the JAX package's envs/atari.py ``AtariEnv`` for
-``game="toy"`` (the engine's ToyCatch backend, which has ALE's frame,
-reset and RAM contract). ``obs_mode`` says what the engine ships a slot a
+The counterpart of the JAX package's envs/atari.py ``AtariEnv``: ``game=
+"toy"`` runs the engine's ToyCatch backend, which has ALE's frame, reset
+and RAM contract; a game of the Atari suite runs on the engine's ALE
+backend, which is compiled in only when the engine is built against an
+ALE install (``NEVO_ALE_PREFIX``, native/build.py), with the ROM at
+``rom_path`` (default ``<game>.bin``). ``is_available()`` says whether the
+engine has ALE; without it a game is refused, naming the build. ``obs_mode`` says what the engine ships a slot a
 step (envs/preprocess.py ``preprocess_obs`` does the rest on the device,
 algos/rollout_host.py the stack):
 
@@ -18,18 +22,50 @@ algos/rollout_host.py the stack):
 the CPU stack's ``wrap_deepmind`` default for training envs, which
 utils/config.py enables for ``<Game>NoFrameskip-v4`` ids, as the JAX
 package does. The behavior characterization is the 128 RAM bytes.
-
-Not ported yet: ALE games.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
 from .preprocess import GRAY_PALETTE_UINT8
 
+# minimal-action-set sizes per game (tf_atari.py:152-213 game_actions)
+GAME_ACTIONS = {
+    "air_raid": 6, "alien": 18, "amidar": 10, "assault": 7, "asterix": 9,
+    "asteroids": 14, "atlantis": 4, "bank_heist": 18, "battle_zone": 18,
+    "beam_rider": 9, "berzerk": 18, "bowling": 6, "boxing": 18, "breakout": 4,
+    "carnival": 6, "centipede": 18, "chopper_command": 18, "crazy_climber": 9,
+    "demon_attack": 6, "double_dunk": 18, "elevator_action": 18, "enduro": 9,
+    "fishing_derby": 18, "freeway": 3, "frostbite": 18, "gopher": 8,
+    "gravitar": 18, "hero": 18, "ice_hockey": 18, "jamesbond": 18,
+    "journey_escape": 16, "kangaroo": 18, "krull": 18, "kung_fu_master": 14,
+    "montezuma_revenge": 18, "ms_pacman": 9, "name_this_game": 6, "phoenix": 8,
+    "pitfall": 18, "pong": 6, "pooyan": 6, "private_eye": 18, "qbert": 6,
+    "riverraid": 18, "road_runner": 18, "robotank": 18, "seaquest": 18,
+    "skiing": 3, "solaris": 18, "space_invaders": 6, "star_gunner": 18,
+    "tennis": 18, "time_pilot": 10, "tutankham": 8, "up_n_down": 6,
+    "venture": 18, "video_pinball": 9, "wizard_of_wor": 10,
+    "yars_revenge": 18, "zaxxon": 18,
+}
+GAMES = tuple(GAME_ACTIONS)
+
 FRAMESKIP = 4
 DEFAULT_TIMESTEP_CUTOFF = 100_000 * FRAMESKIP  # tf_atari.py:40-41
+
+
+def is_available() -> bool:
+    """Whether the default engine was built with ALE (the JAX package's
+    envs/atari.py:50-58)."""
+    try:
+        from ..native.bridge import HostBatchEnv
+
+        HostBatchEnv("ale", "", 1).close()
+        return True
+    except Exception:
+        return False
 
 
 class AtariEnv:
@@ -47,19 +83,28 @@ class AtariEnv:
         pipeline_groups: int = 2,
         episodic_life: bool = False,
         obs_mode: str = "gray",
+        rom_path: Optional[str] = None,
     ):
         from ..native.bridge import HostBatchEnv
 
-        if game != "toy":
+        if game != "toy" and game not in GAME_ACTIONS:
+            raise ValueError(f"{game!r} is not in the Atari suite")
+        if game != "toy" and not is_available():
             raise NotImplementedError(
-                f"game {game!r}: the port's engine has no ALE; run the experiment on the "
-                "ToyCatch engine with game 'toy' (CLI override {\"game\": \"toy\"})"
+                f"game {game!r}: the port's engine has no ALE (build it against an ALE install with "
+                "NEVO_ALE_PREFIX, native/build.py), or run the experiment on the ToyCatch engine with game "
+                "'toy' (CLI override {\"game\": \"toy\"})"
             )
         if obs_mode not in ("gray", "indexed", "preproc"):
             raise ValueError(f"obs_mode must be 'gray', 'indexed' or 'preproc', not {obs_mode!r}")
         self.game = game
         self.num_threads = num_threads
-        self._env = HostBatchEnv("toy", batch_size, num_threads, episodic_life=episodic_life)
+        self.rom_path = rom_path
+        if game == "toy":
+            self._env = HostBatchEnv("toy", "", batch_size, num_threads, episodic_life=episodic_life)
+        else:
+            self._env = HostBatchEnv("ale", rom_path or f"{game}.bin", batch_size, num_threads,
+                                     episodic_life=episodic_life)
         self.episodic_life = episodic_life
         self.obs_mode = obs_mode
         if obs_mode != "indexed":
@@ -76,7 +121,7 @@ class AtariEnv:
         """A fresh engine pool of the same kind (a pod's emulated rank owns
         one, as a real rank does)."""
         return AtariEnv(self.game, self.batch_size, self.num_threads, self.pipeline_groups, self.episodic_life,
-                        self.obs_mode)
+                        self.obs_mode, self.rom_path)
 
     def reset(self, noops: np.ndarray, indices=None, max_frames: int = DEFAULT_TIMESTEP_CUTOFF, seeds=None):
         self._env.reset(noops, indices=indices, max_frames=max_frames, seeds=seeds)

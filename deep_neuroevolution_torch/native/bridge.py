@@ -8,6 +8,10 @@ observations: ``observe`` (indexed-color frame pairs), ``observe_gray``
 (frame pairs through the engine's gray LUT) and ``observe_preproc`` (the
 LUT, the 2-frame max and the align-corners resize in the engine, one uint8
 frame a slot). NumPy staging buffers are reused across calls.
+
+The backend is "toy" (ToyCatch) or "ale" (a ROM path as ``arg``), the
+latter where the library was built with ALE (native/build.py: ``build(
+with_ale=...)``, or ``build_ale_stub()``'s library through ``lib_path``).
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ from .build import ensure_built
 
 
 @functools.lru_cache(maxsize=None)
-def _load() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(ensure_built()))
+def _load(path: Optional[str] = None) -> ctypes.CDLL:
+    """The engine library at ``path`` (default: ``ensure_built``'s), its
+    functions typed; loaded once a path."""
+    lib = ctypes.CDLL(str(path or ensure_built()))
     iptr = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     fptr = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     u8ptr = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
@@ -59,15 +65,18 @@ def _load() -> ctypes.CDLL:
 
 
 class HostBatchEnv:
-    """Batched host simulator pool. Only the "toy" backend (ToyCatch) is
-    built into the port's engine."""
+    """Batched host simulator pool of ``batch_size`` slots of ``backend``
+    ("toy", or "ale" with the ROM path ``arg``), from the engine library
+    at ``lib_path`` (default: ``ensure_built``'s)."""
 
-    def __init__(self, backend: str = "toy", batch_size: int = 64, num_threads: int = 0, episodic_life: bool = False):
-        lib = _load()
+    def __init__(self, backend: str = "toy", arg: str = "", batch_size: int = 64, num_threads: int = 0,
+                 episodic_life: bool = False, lib_path: Optional[str] = None):
+        lib = _load(str(lib_path) if lib_path else None)
         self._lib = lib
-        self._h = lib.nevo_create(backend.encode(), b"", batch_size, num_threads)
+        self._h = lib.nevo_create(backend.encode(), arg.encode(), batch_size, num_threads)
         if not self._h:
-            raise RuntimeError(f"engine backend {backend!r} unavailable (the port's engine is built without ALE)")
+            raise RuntimeError(f"engine backend {backend!r} unavailable in {lib_path or 'the default engine'} "
+                               "(ALE is compiled in only with NEVO_ALE_PREFIX, native/build.py)")
         if episodic_life:
             # EpisodicLife training episodes (atari_wrappers.py:50-84): done on
             # a life lost; the game restarts only on game over, and a reset

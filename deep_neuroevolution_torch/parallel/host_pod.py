@@ -7,7 +7,9 @@ fleet a GPU, concurrent_worker.py:129-142). Here every rank owns its own
 ``HostBatchEnv`` engine pool (native/bridge.py) and its card, evaluates
 its blocks of each global round, and the per-episode columns are gathered
 in rank order (``_hp_gather_cols``, host_pod.py:59-70); the obs-stat
-moments are summed (``_hp_sum``, :72-81). Every rank then computes the
+moments are summed (``_hp_sum``, :72-81; ``PopGroup.sum``, the padded
+slots of a rank's under-filled block left out by the rollout's
+``obstat_valid``). Every rank then computes the
 whole update from the global columns, so ES runs K2 over all of a
 generation's offsets on every rank, and a host pod's θ equals the single
 trainer's bit for bit wherever the episodes do.
@@ -22,7 +24,7 @@ interrupted, so an engine's past changes its next episodes.
 
 ``emulate_procs = P`` (the loader's ``host_pod: P``) runs the P ranks one
 after the other in one process, rank p's blocks on its own engine pool
-(``AtariEnv.spawn``), as P processes run them (the JAX package's
+(``AtariEnv.spawn``, ``MujocoHostEnv.spawn``), as P processes run them (the JAX package's
 emulation, :1-24, which shares one pool).
 
 The GA's ladder splits its (candidate × episode) list as the JAX package's
@@ -44,7 +46,7 @@ from ..algos.es import ESTrainer
 from ..algos.ga import GATrainer, RSTrainer
 from ..algos.nses import NSESTrainer
 from . import ga_pod, nses_pod
-from .es_pod import gather_column, run_blocks
+from .es_pod import gather_column, local_sum, run_blocks
 from .trainers import _PodBase
 
 
@@ -129,7 +131,8 @@ class HostPodESTrainer(_HostPod, ESTrainer):
     def _host_round(self, npairs: int, draws=None):
         draws, out = run_blocks(self, 1, lambda: self._draw_round(npairs),
                                 lambda d: ESTrainer._host_round(self, npairs, d))
-        return (torch.cat([d[0] for d in draws]), *(gather_column(self, out, i, 1) for i in range(1, 6)))
+        return (torch.cat([d[0] for d in draws]), *(gather_column(self, out, i, 1) for i in range(1, 6)),
+                *(local_sum(self, out, i) for i in (6, 7, 8)))
 
     def _host_eval(self, seed: int):
         return self._on_rank0(lambda s: ESTrainer._host_eval(self, s), seed)

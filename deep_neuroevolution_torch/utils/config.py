@@ -25,16 +25,25 @@ The counterpart of the JAX package's utils/config.py. Two schemas:
   "novelty_search" (or ``algo`` "nses") runs NS-ES, as the
   JAX package's config.py:330-361 reads it: the population is
   ``episodes_per_batch`` (``timesteps_per_batch`` is not read),
-  ``algo_type``, k, M, ``num_rollouts`` and ``selection_method`` come from
-  the file, ``bc_mode`` is 'traj' on the host engine and 'final'
-  elsewhere, and no eval episodes run.
+  ``algo_type``, k, M, ``num_rollouts``, ``selection_method`` and
+  ``calc_obstat_prob`` (which the JAX package's loader leaves out, so its
+  NS-ES never samples obs stats) come from the file, ``bc_mode`` is 'traj' on the Atari engine and 'final'
+  elsewhere (the MuJoCo engine's BC is its own ``bc_mode``'s), and no eval episodes run.
 
 ``resolve_env`` maps env ids onto the registry (envs/core.py ``make``):
-'maze', 'gym.<Id>' and 'CartPole-*' are device envs; any other game runs
-on the host engine (256 slots unless ``env_kwargs`` says otherwise), whose
-only backend here is ToyCatch ('toy'). ``<Game>NoFrameskip-v4`` ids run on
-ToyCatch with EpisodicLife on, as the JAX package runs them where ALE is
-missing (its config.py:34-53).
+'maze', 'gym.<Id>' and 'CartPole-*' are device envs; the MuJoCo families
+(envs/mujoco.py ``MUJOCO_FAMILIES``: Humanoid-v1 and the like, through
+``resolve_env_id`` onto gymnasium's versions) run on the MuJoCo host
+engine, ``HumanoidTrap`` on the humanoid in ``deceptive_humanoid_xml``'s
+trap world (the JAX package's config.py:60-74); they need gymnasium and
+mujoco, and raise without them. Any other game runs on the Atari host
+engine (256 slots unless ``env_kwargs`` says otherwise): ToyCatch for
+'toy', an ALE game where the engine was built with ALE.
+``<Game>NoFrameskip-v4`` ids run that game with EpisodicLife on, on
+ToyCatch where the engine has no ALE, as the JAX package runs them (its
+config.py:34-53). An experiment's own ``env_kwargs`` (``humanoid_nses.json``'s
+``bc_mode``) reach the env, patched by the overrides' (its config.py:185-
+187).
 
 Experiment keys the JAX package acts on, acted on where it reads them:
 
@@ -54,10 +63,12 @@ read it (so it is never dropped without a word).
 ``overrides`` patches a run without editing the file:
 
 * ``game`` — the env to run instead of the file's game (GPU schema). The
-  port's engine has no ALE, so an Atari experiment runs on ``"toy"``;
+  default engine has no ALE, so an Atari experiment runs on ``"toy"``;
 * ``population_size`` and ``episode_cutoff_mode`` — the file's fields;
-* ``env_kwargs`` — keyword arguments of the env: for the host engine
-  ``batch_size`` (slots), ``num_threads``, ``pipeline_groups``;
+* ``env_kwargs`` — keyword arguments of the env: for the host engines
+  ``batch_size`` (slots) and ``num_threads``, for the Atari one
+  ``pipeline_groups`` and ``obs_mode``, for the MuJoCo one ``bc_mode`` and
+  ``traj_len``;
 * ``noise_size`` — noise-table length (default 250M, the reference's);
 * ``noise`` — the noise source instead of the reference's host-built
   ``RandomState(123)`` table (the JAX package's config.py:189-208):
@@ -90,10 +101,12 @@ host-engine env in a world of more than one rank gets a host pod
 device env are refused, as is a device pod on ``noise: virtual``.
 
 A DQN policy's ``nonlin_type`` and ``ac_init_std`` reach the model as its
-``nonlin_type`` and ``out_std`` (the JAX package's config.py:113-116).
+``nonlin_type`` and ``out_std`` (the JAX package's config.py:113-116); a
+MujocoPolicy is sized from its env (obs and action widths, the action
+bounds).
 
-Not ported yet, and rejected with ``NotImplementedError``: MuJoCo env ids
-(so ``humanoid*.json``); NS-ES on a GPU-stack file.
+Rejected with ``NotImplementedError``: NS-ES on a GPU-stack file, which
+the JAX package does not run either.
 """
 
 from __future__ import annotations
@@ -109,6 +122,7 @@ from ..algos.es import ESConfig, ESTrainer
 from ..algos.ga import GAConfig, GATrainer, RSTrainer
 from ..algos.nses import NSESConfig, NSESTrainer
 from ..device import resolve_device
+from ..envs import atari, mujoco
 from ..envs.core import Continuous, Discrete
 from ..ops import optim
 from ..ops.noise import DEFAULT_COUNT, NoiseTable, VirtualNoise, prng_key
@@ -129,26 +143,28 @@ _KEYS_READ = {
     "load_from": ({("gpu", "es")}, "a GPU-stack ES experiment"),
     "mirror_crn": ({("gpu", "es"), ("cpu", "es")}, "ES (a GPU-stack file's top level, a CPU-stack file's 'config')"),
 }
-# the JAX package's envs/mujoco.py MUJOCO_FAMILIES: host envs not ported yet
-_MUJOCO_FAMILIES = (
-    "Humanoid", "HumanoidStandup", "HalfCheetah", "Hopper", "Walker2d", "Ant", "Swimmer", "InvertedPendulum",
-    "InvertedDoublePendulum", "Reacher", "Pusher", "HumanoidTrap",
-)
-
-
 def resolve_env(env_id: str, **kwargs):
-    """An env id of either schema → a device env or the host engine."""
-    if re.fullmatch(r"[A-Za-z0-9]+NoFrameskip-v\d+", env_id):
+    """An env id of either schema → a device env or a host engine."""
+    m = re.fullmatch(r"([A-Za-z0-9]+)NoFrameskip-v\d+", env_id)
+    if m:
         # the CPU stack wraps its training envs with wrap_deepmind, whose
-        # EpisodicLifeEnv is on by default (atari_wrappers.py:204-222); the
-        # engine has no ALE, so ToyCatch stands in for the game
-        return envs.make("toy", **{"batch_size": 256, "episodic_life": True, **kwargs})
+        # EpisodicLifeEnv is on by default (atari_wrappers.py:204-222);
+        # without ALE in the engine, ToyCatch stands in for the game
+        game = re.sub(r"(?<!^)(?=[A-Z])", "_", m.group(1)).lower()
+        game = game if atari.is_available() else "toy"
+        return envs.make(game, **{"batch_size": 256, "episodic_life": True, **kwargs})
     if env_id.split("-")[0] == "CartPole":
         env_id = "gym." + env_id
     if env_id == "maze" or env_id.startswith("gym."):
         return envs.make(env_id, **kwargs)
-    if env_id.split("-")[0] in _MUJOCO_FAMILIES:
-        raise NotImplementedError(f"env id {env_id!r}: the MuJoCo envs are not ported yet")
+    family = env_id.split("-")[0]
+    if family in mujoco.MUJOCO_FAMILIES:
+        if not mujoco.is_available():
+            raise RuntimeError(f"env id {env_id!r} needs gymnasium and mujoco, which do not import here")
+        if family == "HumanoidTrap":  # NS-ES's deceptive world
+            return mujoco.MujocoHostEnv(mujoco.resolve_env_id("Humanoid-v5"), xml_file=mujoco.deceptive_humanoid_xml(),
+                                        **kwargs)
+        return mujoco.MujocoHostEnv(mujoco.resolve_env_id(env_id), **kwargs)
     return envs.make(env_id, **{"batch_size": 256, **kwargs})  # the JAX package's Atari default
 
 
@@ -277,7 +293,7 @@ def load_experiment(
     else:
         exp = {**exp, **{k: overrides[k] for k in ("game", "population_size", "episode_cutoff_mode") if k in overrides}}
         env_id, model_name, model_args = exp["game"], exp["model"], {}
-    env = resolve_env(env_id, **overrides.get("env_kwargs", {}))
+    env = resolve_env(env_id, **{**exp.get("env_kwargs", {}), **overrides.get("env_kwargs", {})})
     try:
         model = build_model(model_name, model_args, env)
         if algo == "nses":
@@ -383,8 +399,10 @@ def _nses_trainer(env, model, exp: Dict[str, Any], overrides, budget, noise_tabl
     """The JAX package's NS branch (its config.py:330-361)."""
     c, ns = exp["config"], exp.get("novelty_search", {})
     # Atari NS-ES characterizes behavior by the per-step RAM trajectory
-    # (policies.py:410-418), the device envs by the final state
-    default_bc = "traj" if getattr(env, "is_host_env", False) else "final"
+    # (policies.py:410-418), the device envs and the vector engines by the
+    # final state (the JAX package's config.py:334-340)
+    image_engine = getattr(env, "is_host_env", False) and getattr(env, "host_obs", "image") == "image"
+    default_bc = "traj" if image_engine else "final"
     cfg = NSESConfig(
         l2coeff=c.get("l2coeff", 0.005),
         noise_stdev=c.get("noise_stdev", 0.02),
@@ -397,6 +415,9 @@ def _nses_trainer(env, model, exp: Dict[str, Any], overrides, budget, noise_tabl
         num_rollouts=int(ns.get("num_rollouts", 1)),
         selection_method=ns.get("selection_method", "novelty_prob"),
         bc_mode=overrides.get("bc_mode", ns.get("bc_mode", default_bc)),
+        # the reference's NS-ES workers sample obs stats with the file's
+        # calc_obstat_prob (nses.py:197-198); the JAX package's loader drops it
+        calc_obstat_prob=c.get("calc_obstat_prob", 0.0),
         **budget,
     )
     return _es_trainer(env, model, cfg, exp, noise_table, seed, device, overrides, NSESTrainer)

@@ -11,13 +11,14 @@ keys: ``returns``, ``lengths`` and ``bc_trajectory`` (the device env's
 RAM ``[episodes, 128]``).
 
 The host arm runs θ on every engine slot, the VBN stats from the file's
-reference batch, in ⌈episodes / slots⌉ rounds; each round's engine seed
-(the noop counts' and episode seeds' source, algos/rollout_host.py) is
-drawn from ``seed`` (``_draw_seeds``, where tests feed the JAX package's
-in). The device arm
-resets ``episodes`` slots from a generator seeded with ``seed``. A vector
-engine (MuJoCo) is not ported: its replay raises ``NotImplementedError``
-(ROADMAP Queue 1 item 8, the ``rollout_host`` dispatcher).
+reference batch or the file's obs stats (no action noise), in ⌈episodes /
+slots⌉ rounds through ``rollout_host``: the Atari engine, or a vector
+engine (MuJoCo), whose BC, saved as ``bc_trajectory``, is its final mass
+centre or, with its ``bc_mode='traj'``, the x-y trajectory (the JAX
+package's viz.py:44-80). Each round's engine seed (the source of the noop
+counts and episode seeds, algos/rollout_host.py) is drawn from ``seed``
+(``_draw_seeds``, where tests feed the JAX package's in). The device arm
+resets ``episodes`` slots from a generator seeded with ``seed``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from .. import models
 from ..algos.rollout import collect_ref_batch, rollout_batch_scan
-from ..algos.rollout_host import collect_ref_batch_host, rollout_host_batch
+from ..algos.rollout_host import collect_ref_batch_host, rollout_host
 from ..device import resolve_device
 from ..models.mlp import MLPContext
 from ..ops import obstat
@@ -71,23 +72,21 @@ def replay_policy(
         if ref_batch is None:
             raise ValueError(f"{type(model).__name__} needs a reference batch to replay")
         stats = model.batch_ref_stats(theta[None], torch.as_tensor(ref_batch, dtype=torch.float32).to(dev))
+    ctx = None
+    if stats is None and model.needs_ob_stat and ob_stat is not None:
+        st = obstat.RunningStat(*(torch.as_tensor(v, dtype=torch.float32, device=dev) for v in ob_stat))
+        ctx = MLPContext(obstat.mean(st), obstat.std(st), 0.0)  # no action noise
     if getattr(env, "is_host_env", False):
-        if getattr(env, "host_obs", "image") == "vector":
-            raise NotImplementedError("replay on a vector engine (MuJoCo) is not ported yet (ROADMAP Queue 1 item 8)")
         B = env.batch_size
         seeds = _draw_seeds(torch.Generator().manual_seed(seed), -(-episodes // B))
-        params = (theta[None].expand(B, -1), None if stats is None else _expand(stats, B))
-        res = [rollout_host_batch(env, act, params, s, env.default_timestep_cutoff, dev) for s in seeds]
+        params = (theta[None].expand(B, -1), ctx if stats is None else _expand(stats, B))
+        res = [rollout_host(env, act, params, s, env.default_timestep_cutoff, dev) for s in seeds]
         rets, lens, traj = (np.concatenate([getattr(r, f) for r in res])[:episodes]
                             for f in ("returns", "lengths", "bc"))
     else:
         state = env.reset(episodes, torch.Generator(device=dev).manual_seed(seed), dev)
-        ctx = None
         if stats is not None:
             ctx = _expand(stats, episodes)
-        elif model.needs_ob_stat and ob_stat is not None:
-            st = obstat.RunningStat(*(torch.as_tensor(v, dtype=torch.float32, device=dev) for v in ob_stat))
-            ctx = MLPContext(obstat.mean(st), obstat.std(st), 0.0)  # no action noise
         res, (bc_traj, _) = rollout_batch_scan(env, act, (theta[None].expand(episodes, -1), ctx), state,
                                                env.default_timestep_cutoff)
         rets, lens, traj = (x.cpu().numpy() for x in (res.returns, res.lengths, bc_traj))

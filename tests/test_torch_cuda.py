@@ -115,6 +115,23 @@ def test_noise_gradient_matches_plain(cuda_device, B):
     torch.testing.assert_close(g, ref, rtol=0, atol=1e-5 * max(1.0, float(ref.abs().max())))
 
 
+def test_noise_gradient_at_the_humanoid_shape(cuda_device):
+    """K2 at the vector-engine path's shape: 500 pairs (a humanoid.json
+    generation's 1000 episodes) × D = 159,505 (the Humanoid-v5 MLP), on
+    the reference table's first 25M floats: within 1e-5 of max|g|."""
+    table = NoiseTable.from_seed(count=25_000_000, device=cuda_device).noise
+    gen = torch.Generator().manual_seed(159_505)
+    B, dim = 500, 159_505
+    idxs = torch.randint(0, table.numel() - dim + 1, (B,), generator=gen, dtype=torch.int32).to(cuda_device)
+    w = torch.randn(B, generator=gen).to(cuda_device)
+    launches = noise_gradient.launches
+    g = noise_gradient(table, idxs, w, dim)
+    ref = noise_gradient_plain(table, idxs, w, dim)
+    torch.cuda.synchronize()
+    assert noise_gradient.launches == launches + 1
+    torch.testing.assert_close(g, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
 def _k2_offsets(name, N, D, B, gen):
     """Offsets of one adversarial kind, each in [0, N - D]."""
     top = N - D

@@ -456,8 +456,12 @@ def test_ns_configurations_load_on_the_cpu(name, monkeypatch, quiet_loggers):
 
 
 def test_ns_loader_rejections():
-    with pytest.raises(NotImplementedError, match="MuJoCo"):
-        tconfig.load_experiment(_exp("humanoid_nses.json"), overrides={"noise_size": 3_000_000}, device="cpu")
+    # humanoid_nses.json loads since the MuJoCo engine was ported
+    # (tests/test_torch_mujoco.py); its vector engine refuses the Atari trajectory BC
+    with pytest.raises(ValueError, match="Atari host engines only"):
+        tconfig.load_experiment(_exp("humanoid_nses.json"), overrides={
+            "noise_size": 3_000_000, "bc_mode": "traj", "env_kwargs": {"batch_size": 2, "num_threads": 1}},
+            device="cpu")
     with pytest.raises(ValueError, match="bc_mode"):  # an NS-only override
         tconfig.load_experiment(_exp("maze_es.json"), overrides={"bc_mode": "final"}, device="cpu")
     with pytest.raises(ValueError, match="host engines only"):

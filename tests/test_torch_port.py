@@ -38,7 +38,7 @@ def _port_files():
     """chip_smoke.py, the port's A/B scripts and every source of the port,
     its CUDA headers included."""
     files = [ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("torch_*.py"))]
-    for ext in ("*.py", "*.cu", "*.cuh", "*.cpp", "*.h"):
+    for ext in ("*.py", "*.cu", "*.cuh", "*.cpp", "*.h", "*.hpp"):
         files += [p for p in PORT.rglob(ext) if "_build" not in p.parts]
     return files
 
@@ -120,6 +120,42 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert cli.main(["train", "--exp_file", str(ROOT / "configurations" / "es_atari_config.json"),
                      "--overrides", '{"game": "toy"}']) == 1
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+_NO_GYMNASIUM = """
+import sys
+sys.modules["gymnasium"] = None
+sys.modules["mujoco"] = None
+sys.modules["jax"] = None
+from deep_neuroevolution_torch import envs
+from deep_neuroevolution_torch.envs import mujoco
+from deep_neuroevolution_torch.utils import config
+assert not mujoco.is_available() and envs.MujocoHostEnv is mujoco.MujocoHostEnv
+try:
+    config.resolve_env("Humanoid-v1")
+except RuntimeError as e:
+    print("refused:", e)
+"""
+
+
+def test_mujoco_modules_import_without_gymnasium():
+    """The MuJoCo slice's modules are listed, the native extras' sources
+    are the port's own, and envs/mujoco.py imports where gymnasium and
+    mujoco do not (the card's machine has neither): a MuJoCo id is then
+    refused by name."""
+    for name in ("envs.mujoco", "algos.rollout_host", "native.build", "native.bridge"):
+        assert f"deep_neuroevolution_torch.{name}" in PORT_MODULES
+    names = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"native/ale_stub/ale_interface.hpp", "native/engine_stress_test.cpp", "envs/mujoco.py"} <= names
+    from deep_neuroevolution_torch.algos import rollout_host
+    from deep_neuroevolution_torch.native import build
+
+    assert callable(rollout_host.rollout_host) and callable(rollout_host.rollout_host_vec)
+    assert callable(build.build_ale_stub) and callable(build.build_stress)
+    p = subprocess.run([sys.executable, "-c", _NO_GYMNASIUM], capture_output=True, text=True, cwd=ROOT, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert "refused: env id 'Humanoid-v1' needs gymnasium and mujoco" in p.stdout
 
 
 def test_slice_two_modules_are_listed():

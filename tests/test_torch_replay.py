@@ -255,9 +255,32 @@ def test_main_replay_needs_a_policy_and_a_card(tmp_path, capsys, monkeypatch):
 
 
 def test_vector_engine_replay_is_not_ported():
-    class VectorEngine:
-        is_host_env, host_obs, batch_size = True, "vector", 2
+    """The vector-engine replay this test once saw refused runs since the
+    MuJoCo slice (``rollout_host`` → ``rollout_host_vec``; the Humanoid
+    replay against the JAX package is in tests/test_torch_mujoco.py): on a
+    2-slot engine whose episodes end after 3 + slot steps, 3 episodes take
+    two rounds, each slot's BC is its final state, the cap bounds nothing."""
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tviz.replay_policy(tmodels.ContinuousMLP(obs_dim=3, ac_dim=1), np.zeros(
-            tmodels.ContinuousMLP(obs_dim=3, ac_dim=1).num_params, np.float32), VectorEngine(), device="cpu")
+    class VectorEngine:
+        is_host_env, host_obs, batch_size, obs_shape = True, "vector", 2, (3,)
+        max_episode_steps = default_timestep_cutoff = 50
+
+        def reset(self, indices=None, seeds=None):
+            self.t = np.zeros(2, np.int64)
+
+        def step(self, actions, indices):
+            assert actions.shape == (len(indices), 1)
+            self.t[indices] += 1
+            return np.ones(len(indices), np.float32), self.t[indices] >= 3 + np.asarray(indices)
+
+        def observe(self):
+            return np.stack([self.t, self.t, self.t], axis=1).astype(np.float32)
+
+        def final_state(self):
+            return self.t[:, None].astype(np.float32)
+
+    model = tmodels.ContinuousMLP(obs_dim=3, ac_dim=1)
+    out = tviz.replay_policy(model, np.zeros(model.num_params, np.float32), VectorEngine(), episodes=3,
+                             return_trajectory=True, device="cpu")
+    assert out["lengths"] == [3, 4, 3] and out["returns"] == [3.0, 4.0, 3.0]
+    np.testing.assert_array_equal(out["bc_trajectory"], [[3.0], [4.0], [3.0]])

@@ -326,14 +326,18 @@ def test_both_configurations_load_on_the_cpu():
         assert tr._npairs_round() == 2
 
 
-def test_config_rejects_what_is_not_ported(tmp_path):
+def test_config_rejects_what_is_not_ported(tmp_path, monkeypatch):
     maze = _exp("maze_es.json")
-    for exp, match in (
-        (_exp("humanoid.json"), "MuJoCo"),
-        ({**maze, "env_id": "Humanoid-v1"}, "MuJoCo"),
-    ):
-        with pytest.raises(NotImplementedError, match=match):
+    # MuJoCo ids load since the engine was ported (tests/test_torch_mujoco.py
+    # loads both humanoid files); without gymnasium and mujoco they raise,
+    # naming both
+    from deep_neuroevolution_torch.envs import mujoco as tmujoco
+
+    monkeypatch.setattr(tmujoco, "is_available", lambda: False)
+    for exp in (_exp("humanoid.json"), {**maze, "env_id": "Humanoid-v1"}):
+        with pytest.raises(RuntimeError, match="needs gymnasium and mujoco"):
             tconfig.load_experiment(exp, overrides={"noise_size": 3_000_000}, device="cpu")
+    monkeypatch.undo()
     # the GA's device arm and its CPU-style genomes now load
     tr = tconfig.load_experiment({**maze, "algo": "ga"}, overrides={"noise_size": 3_000_000}, device="cpu")
     assert isinstance(tr, tga.GATrainer) and tr.config.genome_style == "cpu" and not tr.is_host_env

@@ -43,12 +43,25 @@ CASES = {
     "device_ga": ("maze_es.json", "ga", MAZE, 2),
     "device_nses": ("maze_nses.json", None, MAZE, 2),
 }
+try:  # the MuJoCo engine where gymnasium and mujoco import: humanoid.json in quota mode
+    import gymnasium  # noqa: F401
+    import mujoco  # noqa: F401
+
+    # one global round of two 4-slot blocks a generation (8 episodes), so
+    # the pod's obs sums add in the single trainer's order
+    CASES["host_es_mujoco"] = ("humanoid.json", None, {
+        "episode_cutoff_mode": 15, "episodes_per_batch": 8, "timesteps_per_batch": 8, "noise_size": 3_000_000,
+        "num_eval_episodes": 2, "env_kwargs": {"batch_size": 4, "num_threads": 1}}, 2)
+except ImportError:
+    pass
 
 
 def experiment(name: str) -> dict:
     exp = json.loads((ROOT / "configurations" / CASES[name][0]).read_text())
     if name in ("host_ga", "host_rs"):  # a ladder whose split is the single trainer's rounds
         exp = {**exp, "validation_threshold": 2, "num_validation_episodes": 2, "num_test_episodes": 4}
+    if name == "host_es_mujoco":  # every other rollout into the obs stats (the file's 0.01 samples none of 8)
+        exp = {**exp, "config": {**exp["config"], "calc_obstat_prob": 0.5}}
     return exp
 
 
@@ -91,6 +104,8 @@ def run(tr, generations: int) -> list:
                            else st.bc)
             else:
                 rec.update(bc=st.bc, eval_returns=st.eval_returns, eval_lengths=st.eval_lengths)
+            if tr.model.needs_ob_stat:
+                rec.update({f"ob_{k}": v.cpu().numpy().copy() for k, v in zip(("sum", "sumsq", "count"), tr.ob_stat)})
             out.append(rec)
     return out
 
