@@ -209,7 +209,26 @@ ends:
    the stress binary without TSAN, side by side with g++; 256 stub slots
    stepped 100 times (4 actions, 128 RAM bytes, (2, 210, 160) frames,
    rewards, finished slots reset), their emulator frames per second,
-   EpisodicLife through lives(); the stress binary prints ``stress ok``.
+   EpisodicLife through lives(); the stress binary prints ``stress ok``;
+31. the inspector on the card, on a 25M-float table of its own (the
+   reference stream's first 25M floats; phase 13's table is freed by
+   then): two ES generations of es_atari_config.json at phase 4's cut with
+   ``vine_snapshot_dir`` set through the Python API (K1 and K2 must
+   launch; K2 once a generation); ``load_data`` reads both generations
+   back (2 × pairs offspring rows, each column what the trainer handed the
+   dump); ``process_bc`` 'two_end', then 'pca' on the card against the
+   same reduction on the CPU within 1e-9·max (float64), both reduced
+   directories read back, and 'tsne' raising its ImportError where
+   scikit-learn does not import; ``replay_point`` on the card (ToyCatch)
+   for generation 2's parent point and a +1 and a −1 offspring row: θ'
+   bit for bit the CPU's, each replay repeated bit for bit, K1 launching,
+   every recorded forward teacher-forced against the CPU on its first 4
+   slots (slot 0 is the replayed episode), the replayed
+   return printed beside the fitness the row records; then the same on
+   two full-size maze_es.json generations (K2 once each; the replays'
+   trajectories ``[400, 1, 2]``, teacher-forced over their 400 steps).
+   Where matplotlib does not import the phase says that the GUI and
+   plot.py were not run (an import-spec check).
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -2401,6 +2420,29 @@ def recording_scores(cls, calls: list, method: str = "batch_scores_parts"):
         setattr(cls, method, real)
 
 
+def vbn_teacher_forced(model, theta, ref_batch, calls: list, what: str, rows=None) -> tuple:
+    """Each recorded card forward of the VBN-DQN ``theta`` (frames and
+    scores, from ``recording_scores``; its first ``rows`` slots, or all)
+    again on the CPU from the card's frames, within phase 4's
+    1e-3·max(1, max|score|), the argmax equal but at a near tie; returns
+    (max abs error, the largest tolerance, near ties)."""
+    stats = model.batch_ref_stats(theta[None], ref_batch)
+    err = tol = 0.0
+    near = 0
+    for obs, scores in calls:
+        obs, scores = obs[:rows], scores[:rows]
+        n = obs.shape[0]
+        ctx = type(stats)(*(tuple(x.expand(n, -1) for x in f) for f in stats))
+        parts, ctx = model.prepare_batch_params((theta[None].expand(n, -1), ctx))
+        ref = model.batch_scores_parts(parts, obs, ctx)
+        t = 1e-3 * max(1.0, float(ref.abs().max()))
+        err, tol = max(err, float((scores - ref).abs().max())), max(tol, t)
+        top2 = ref.topk(2, dim=-1).values
+        near += int(((top2[:, 0] - top2[:, 1]) <= 2 * t).sum())
+        check_top_actions(scores, ref, 2 * t, what)
+    return err, tol, near
+
+
 def replay_toy_policy(device, path: str) -> dict:
     """``main replay --snapshot`` of phase 4's policy file, 8 episodes on 8
     engine slots, on the card (K1 must launch) and on the CPU with the
@@ -2420,19 +2462,7 @@ def replay_toy_policy(device, path: str) -> dict:
     launches = read_counters()
     cpu = viz.replay_snapshot(path, env_id="toy", episodes=REPLAY_EPISODES, env_kwargs=REPLAY_ENV, device="cpu")
     model, theta, payload = checkpoint.load_policy_snapshot(path, device="cpu")
-    stats = model.batch_ref_stats(theta[None], payload["ref_batch"])
-    err = near = 0.0
-    tol = 0.0
-    for obs, scores in calls:
-        n = obs.shape[0]
-        ctx = type(stats)(*(tuple(x.expand(n, -1) for x in f) for f in stats))
-        parts, ctx = model.prepare_batch_params((theta[None].expand(n, -1), ctx))
-        ref = model.batch_scores_parts(parts, obs, ctx)
-        t = 1e-3 * max(1.0, float(ref.abs().max()))
-        err, tol = max(err, float((scores - ref).abs().max())), max(tol, t)
-        top2 = ref.topk(2, dim=-1).values
-        near += int(((top2[:, 0] - top2[:, 1]) <= 2 * t).sum())
-        check_top_actions(scores, ref, 2 * t, "replay teacher-forced")
+    err, tol, near = vbn_teacher_forced(model, theta, payload["ref_batch"], calls, "replay teacher-forced")
     equal = card["returns"] == cpu["returns"] and card["lengths"] == cpu["lengths"]
     out = dict(seconds=seconds, k1=launches["population_linear"], k1_by_batch=by_batch_k1(),
                returns_card=card["returns"], returns_cpu=cpu["returns"], lengths_card=card["lengths"],
@@ -3178,6 +3208,288 @@ def run_native_extras() -> dict:
     return out
 
 
+# ----------------------------------------------------------- phase 31
+
+INSPECTOR_TABLE = 25_000_000  # phase 31's table: the reference stream's first 25M floats (phase 13's is freed)
+INSPECTOR_GENERATIONS = 2
+INSPECTOR_MAZE_OVERRIDES = {}  # maze_es.json as it stands: 512 members, 400 steps
+PCA_TOL = 1e-9  # card 'pca' against the CPU's, × max|CPU|, float64
+FORCED_ROWS = 4  # slots of each recorded replay forward redone on the CPU: slot 0, the replayed episode, first
+
+
+@contextlib.contextmanager
+def recording_clouds():
+    """What every ``vine.master_extract_cloud`` call is handed (iteration,
+    then the BCs, returns, lengths, noise offsets and policy seeds, on the
+    host), while the context is open."""
+    from deep_neuroevolution_torch.utils import checkpoint, vine
+
+    real, seen = vine.master_extract_cloud, []
+
+    def recorded(base, iteration, *arrays):
+        seen.append((int(iteration), [checkpoint.to_numpy(x).copy() for x in arrays]))
+        return real(base, iteration, *arrays)
+
+    vine.master_extract_cloud = recorded
+    try:
+        yield seen
+    finally:
+        vine.master_extract_cloud = real
+
+
+@contextlib.contextmanager
+def recording_theta_override():
+    """The θ' that each ``replay_point`` hands ``viz.replay_snapshot``."""
+    from deep_neuroevolution_torch.utils import viz
+
+    real, seen = viz.replay_snapshot, []
+
+    def recorded(*args, theta_override=None, **kw):
+        seen.append(theta_override)
+        return real(*args, theta_override=theta_override, **kw)
+
+    viz.replay_snapshot = recorded
+    try:
+        yield seen
+    finally:
+        viz.replay_snapshot = real
+
+
+def inspector_dumps(device, table, exp_file: str, overrides: dict, work: str) -> dict:
+    """INSPECTOR_GENERATIONS ES generations of ``exp_file`` through the
+    loader, ``vine_snapshot_dir`` set through the Python API (no loader or
+    CLI reads it, in either package); what the trainer handed the dumps,
+    and the kernels' launches."""
+    from deep_neuroevolution_torch.utils import config
+
+    exp = json.loads((ROOT / "configurations" / exp_file).read_text())
+    tr = config.load_experiment(exp, overrides=overrides, device=device, noise_table=table)
+    tr.config.vine_snapshot_dir = work
+    with recording_clouds() as seen:
+        zero_counters()
+        _, seconds = synced_seconds(lambda: tr.train(INSPECTOR_GENERATIONS))
+        launches = read_counters()
+    out = dict(trainer=tr, seconds=seconds, launches=launches, seen=seen, k1_by_batch=by_batch_k1(),
+               pairs=tr.config.population_size // 2, bc_dim=int(np.asarray(tr.last_stats.bc).shape[-1]))
+    print(f"inspector dumps {exp_file}: " + json.dumps(dict(
+        seconds=seconds, generations=INSPECTOR_GENERATIONS, pairs=out["pairs"], bc_dim=out["bc_dim"],
+        launches=launches)), flush=True)
+    require(launches["noise_gradient"] == INSPECTOR_GENERATIONS,
+            f"{exp_file}: K2 launched {launches['noise_gradient']} times")
+    dumped = [it for it, _ in seen]
+    require(dumped == list(range(1, INSPECTOR_GENERATIONS + 1)), f"{exp_file}: dumps of generations {dumped}")
+    return out
+
+
+def check_dumps(path: str, run: dict) -> dict:
+    """``load_data`` reads every generation back: 2 × pairs offspring rows,
+    each column what the trainer held (float32 values through the dump's
+    ten digits, integers exactly), and a parent row."""
+    from deep_neuroevolution_torch.inspector import load_data
+
+    pairs, bc_dim = run["pairs"], run["bc_dim"]
+    require(load_data.list_generations(path) == list(range(1, INSPECTOR_GENERATIONS + 1)), "load_data: generations")
+    for it, (bcs, rets, lens, idx, seeds) in run["seen"]:
+        cloud = load_data.load_offspring(path, it, bc_dim)
+        require(cloud.bc.shape == (2 * pairs, bc_dim), f"gen {it}: offspring rows {cloud.bc.shape}, want {2 * pairs}")
+        seeds = seeds if seeds.ndim == 2 else np.stack([seeds, seeds], axis=1)
+        want = dict(bc=bcs.reshape(2 * pairs, bc_dim), fitness=rets.reshape(-1), length=lens.reshape(-1),
+                    noise_idx=np.repeat(idx, 2), policy_seed=seeds.reshape(-1), sign=np.tile([1.0, -1.0], pairs))
+        for name, v in want.items():
+            got = getattr(cloud, name)
+            same = (np.array_equal(got, np.asarray(v, np.int64)) if name in ("noise_idx", "policy_seed")
+                    else np.array_equal(np.float32(got), np.float32(v)))
+            require(same, f"gen {it}: the dump's {name} column is not what the trainer held")
+        parent = load_data.load_parent(path, it, bc_dim)
+        require(parent.bc.shape == (bc_dim,) and math.isfinite(parent.fitness), f"gen {it}: parent row")
+    return dict(rows_per_generation=2 * pairs, bc_dim=bc_dim)
+
+
+def check_reduction(device, path: str, run: dict) -> dict:
+    """``process_bc``: 'two_end', then 'pca' on the card against the same
+    reduction on the CPU (within PCA_TOL·max|CPU|), each reduced directory
+    read back by ``load_data``; 'tsne' where scikit-learn does not import
+    must raise its ImportError."""
+    import importlib.util
+
+    from deep_neuroevolution_torch.inspector import load_data, process_bc, reduce
+
+    pairs, bc_dim, gens = run["pairs"], run["bc_dim"], INSPECTOR_GENERATIONS
+    out = {}
+    two_end, out["two_end_seconds"] = synced_seconds(lambda: process_bc.process(1, gens, path, bc_dim, "two_end"))
+    pca_dir, out["pca_seconds"] = synced_seconds(lambda: process_bc.process(1, gens, path, bc_dim, "pca",
+                                                                             device=device))
+    X, _, _, _, labels = reduce.assemble(1, gens, path, bc_dim=bc_dim)
+    card, out["pca_card_seconds"] = synced_seconds(lambda: process_bc.reduced(X, labels, "pca", device))
+    t0 = time.perf_counter()
+    cpu = process_bc.reduced(X, labels, "pca", "cpu")
+    out["pca_cpu_seconds"] = time.perf_counter() - t0
+    out["pca_max_abs_err"] = float(np.abs(card - cpu).max())
+    out["pca_tol"] = PCA_TOL * float(np.abs(cpu).max())
+    out["pca_solver_sklearn_would_take"] = reduce.pca_solver(*X.shape)
+    out["X"] = list(X.shape)
+    require(out["pca_max_abs_err"] <= out["pca_tol"], f"pca card vs CPU {out['pca_max_abs_err']} > {out['pca_tol']}")
+    for d in (two_end, pca_dir):
+        require(load_data.list_generations(d) == list(range(1, gens + 1)), f"{d}: generations")
+        cloud = load_data.load_offspring(d, gens, 2)
+        require(cloud.bc.shape == (2 * pairs, 2) and np.isfinite(cloud.bc).all(), f"{d}: reduced rows {cloud.bc.shape}")
+    if importlib.util.find_spec("sklearn") is None:
+        try:
+            reduce.reduce_dim(X[:50], labels=np.zeros(50), method="tsne")
+            raise RuntimeError("'tsne' ran without scikit-learn")
+        except ImportError as e:
+            require("scikit-learn" in str(e) and "tsne" in str(e), f"tsne's ImportError: {e}")
+            out["tsne"] = f"ImportError: {e}"
+    else:
+        out["tsne"] = "not checked: scikit-learn imports here"
+    out["pca_dir"] = pca_dir
+    return out
+
+
+def point_rows(path: str, gen: int, bc_dim: int) -> dict:
+    """Generation ``gen``'s parent point and its first +1 and −1 offspring
+    rows, as the GUI hands them to ``replay_point``."""
+    from deep_neuroevolution_torch.inspector import load_data
+    from deep_neuroevolution_torch.inspector.interactive import Point
+
+    parent = load_data.load_parent(path, gen, bc_dim)
+    cloud = load_data.load_offspring(path, gen, bc_dim)
+    row = np.concatenate([parent.bc, [parent.fitness, parent.length], parent.extras])
+    points = {"parent": Point(gen, True, float(parent.bc[0]), float(parent.bc[1]), parent.fitness, row)}
+    for name, sign in (("plus", 1.0), ("minus", -1.0)):
+        i = int(np.flatnonzero(cloud.sign == sign)[0])
+        row = np.concatenate([cloud.bc[i], [cloud.fitness[i], cloud.length[i], cloud.noise_idx[i],
+                                            cloud.policy_seed[i], cloud.sign[i]]])
+        points[name] = Point(gen, False, float(row[0]), float(row[1]), float(cloud.fitness[i]), row)
+    return points
+
+
+def replay_points(device, path: str, table, bc_dim: int, env_id, record_cls=None) -> dict:
+    """``replay_point`` on the card for generation 2's parent point and a
+    +1 and a −1 offspring row, each twice: θ' (the card's float32 product
+    and sum) bit for bit the CPU's from the same file, table rows and row;
+    the second replay bit for bit the first; with ``record_cls``, the
+    model's forwards recorded (RECORD_CALLS at most) for teacher forcing.
+    Prints each replayed return beside the fitness its row records."""
+    import torch
+
+    from deep_neuroevolution_torch.inspector import load_data, replay
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
+    from deep_neuroevolution_torch.utils import checkpoint
+
+    gen = INSPECTOR_GENERATIONS
+    cpu_table = NoiseTable(table.noise.cpu())
+    sigma = float(load_data.load_parent(path, gen, bc_dim).extras[-1])
+    snap = str(Path(path) / "snapshots" / f"snapshot_gen_{gen:04d}" / f"snapshot_parent_{gen:04d}.h5")
+    _, theta_cpu, _ = checkpoint.load_policy_snapshot(snap, device="cpu")
+    out = {}
+    for name, pt in point_rows(path, gen, bc_dim).items():
+        calls, runs = [], []
+        for rep in range(2):
+            with recording_theta_override() as thetas, contextlib.ExitStack() as stack:
+                if record_cls is not None and rep == 0:
+                    stack.enter_context(recording_scores(record_cls, calls))
+                zero_counters()
+                np.random.seed(31)  # a parent point's replay draws its seed from numpy's global generator
+                res, seconds = synced_seconds(lambda: replay.replay_point(
+                    path, pt, noise_table=table, env_id=env_id, bc_dim=bc_dim, device=device))
+                runs.append((res, seconds, read_counters(), by_batch_k1(), thetas[0]))
+        (r1, s1, launches, k1_by_batch, th1), (r2, _, _, _, th2) = runs
+        traj1, traj2 = (np.asarray(r["bc_trajectory"]) for r in (r1, r2))
+        require(r1["returns"] == r2["returns"] and r1["lengths"] == r2["lengths"] and np.array_equal(traj1, traj2),
+                f"replay of the {name} point: a second replay differs")
+        if pt.parent:
+            require(th1 is None and th2 is None, "a parent point's replay overrode θ")
+            theta = theta_cpu
+        else:
+            idx, sign = int(pt.row[bc_dim + 2]), float(pt.row[bc_dim + 4])
+            theta = replay.perturbed_theta(theta_cpu, cpu_table, idx, sign * sigma)
+            require(torch.equal(th1, th2), f"replay of the {name} point: θ' differs between replays")
+            same = torch.equal(th1.cpu().view(torch.int32), theta.view(torch.int32))
+            require(th1.device.type == torch.device(device).type and same,
+                    f"replay of the {name} point: θ' on the card is not the CPU's bit for bit")
+        out[name] = dict(recorded_fitness=pt.fitness, replayed_return=r1["return_mean"], returns=r1["returns"],
+                         lengths=r1["lengths"], seed=r1["seed"], seconds=s1, trajectory=list(traj1.shape),
+                         k1=launches["population_linear"], k1_by_batch=k1_by_batch, repeat_equal=True,
+                         theta_bit_equal_cpu=not pt.parent, calls=calls, theta=theta)
+        print(f"inspector replay {name}: recorded fitness {pt.fitness} replayed return {r1['return_mean']} "
+              f"(seed {r1['seed']}, {s1:.3f} s, K1 {launches['population_linear']})", flush=True)
+    return out
+
+
+def run_inspector(device, smi: str) -> dict:
+    """Phase 31 (see the module docstring)."""
+    import importlib.util
+
+    import torch
+
+    from deep_neuroevolution_torch.models import VirtualBNDQN
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
+    from deep_neuroevolution_torch.utils import checkpoint, config
+
+    steps = {}
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_vine_")
+    try:
+        table, steps["table_seconds"] = synced_seconds(lambda: NoiseTable.from_seed(count=INSPECTOR_TABLE,
+                                                                                    device=device))
+        print(f"inspector: a {INSPECTOR_TABLE}-float table built for the phase (phase 13's is freed)", flush=True)
+        atari = str(Path(work.name) / "es_atari")
+        run = inspector_dumps(device, table, "es_atari_config.json", SMOKE_OVERRIDES, atari)
+        run["trainer"].close()
+        steps["atari_dump_seconds"] = run["seconds"]
+        require(run["launches"]["population_linear"] > 0, "the dumping ES generations never launched K1")
+        loaded, steps["load_data_seconds"] = synced_seconds(lambda: check_dumps(atari, run))
+        reduction = check_reduction(device, atari, run)
+        replays = replay_points(device, atari, table, run["bc_dim"], "toy", VirtualBNDQN)
+        model, _, payload = checkpoint.load_policy_snapshot(
+            str(Path(atari) / "snapshots" / "snapshot_gen_0002" / "snapshot_parent_0002.h5"), device="cpu")
+        for name, r in replays.items():
+            require(r["k1"] > 0, f"the replay of the {name} point never launched K1")
+            calls = r.pop("calls")
+            err, tol, near = vbn_teacher_forced(model, r.pop("theta"), payload["ref_batch"], calls,
+                                               f"inspector replay {name}, teacher-forced", rows=FORCED_ROWS)
+            require(err <= tol, f"inspector replay {name} teacher-forced: {err} > {tol}")
+            r.update(forwards_recorded=len(calls), teacher_forced_max_abs_err=err, teacher_forced_tol=tol,
+                     near_ties=near)
+
+        maze = str(Path(work.name) / "maze")
+        mrun = inspector_dumps(device, table, "maze_es.json", INSPECTOR_MAZE_OVERRIDES, maze)
+        steps["maze_dump_seconds"] = mrun["seconds"]
+        mloaded = check_dumps(maze, mrun)
+        mreplays = replay_points(device, maze, table, 2, None)
+        thetas = torch.stack([r.pop("theta") for r in mreplays.values()]).to(device)
+        for r in mreplays.values():
+            r.pop("calls")
+            require(r["trajectory"] == [400, 1, 2], f"maze replay trajectory {r['trajectory']}, want [400, 1, 2]")
+        forced = maze_teacher_forced(config.resolve_env("maze"), mrun["trainer"].model, thetas, "inspector_maze")
+        forced.pop("positions")
+        del mrun["trainer"], run["trainer"]
+        if importlib.util.find_spec("matplotlib") is None:
+            print("inspector: the GUI (inspector/interactive.py) and inspector/plot.py were not run on this machine: "
+                  "it has no matplotlib", flush=True)
+            gui = "not run: no matplotlib"
+        else:
+            import matplotlib
+
+            matplotlib.use("Agg", force=True)
+            from deep_neuroevolution_torch.inspector import Inspector, plot_cloud_series
+
+            plot_cloud_series(reduction["pca_dir"], out_png=str(Path(work.name) / "clouds.png"))
+            insp = Inspector([reduction["pca_dir"]], interactive=False)
+            insp.next()
+            gui = f"run headless (Agg): visible {sorted(insp.visible)}"
+    finally:
+        work.cleanup()
+    reduction.pop("pca_dir")
+    out = dict(card=smi, table=INSPECTOR_TABLE, steps=steps, atari=dict(
+        config="es_atari_config.json", cut=SMOKE_OVERRIDES, launches=run["launches"], k1_by_batch=run["k1_by_batch"],
+        load_data=loaded, reduction=reduction, replays=replays),
+        maze=dict(config="maze_es.json", launches=mrun["launches"], load_data=mloaded, replays=mreplays,
+                  teacher_forced=forced), gui=gui)
+    print("inspector " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3446,6 +3758,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with Phase("native extras: the ALE-stub engine and the stress binary"):
         run_native_extras()
+    torch.cuda.empty_cache()
+    with Phase("the inspector on the card: dumps, load_data, process_bc, point replays"):
+        insp = run_inspector(device, smi)
     for key, run in (("humanoid_es", humanoid), ("humanoid_nses", humanoid_ns)):
         device_paths[key] = dict(k2_path_row(run["launches"], run["k2"]), physics=run["stats"]["physics"])
     device_paths["pod1_maze_es"] = dict(launches=pod_one["es"]["launches"]["noise_gradient"], B=256, D=498)
@@ -3465,7 +3780,13 @@ def main() -> int:
     ns_k1["model_variants"] = dict(launches=sum(r["k1"] for r in variants["rows"]),
                                    by_batch={r["model"]: r["k1"] for r in variants["rows"]})
     ns_k1["replay_toy"] = dict(launches=replays["toy"]["k1"], by_batch=replays["toy"]["k1_by_batch"])
+    ns_k1["inspector_es_atari"] = dict(launches=insp["atari"]["launches"]["population_linear"],
+                                       by_batch=insp["atari"]["k1_by_batch"])
+    for name, r in insp["atari"]["replays"].items():
+        ns_k1[f"inspector_replay_{name}"] = dict(launches=r["k1"], by_batch=r["k1_by_batch"])
     pairs = SMOKE_OVERRIDES["population_size"] // 2
+    device_paths["inspector_es_atari"] = dict(launches=insp["atari"]["launches"]["noise_gradient"], B=pairs, D=dim)
+    device_paths["inspector_maze_es"] = dict(launches=insp["maze"]["launches"]["noise_gradient"], B=256, D=498)
     device_paths["es_virtual"] = dict(launches=es_virtual["k2"], B=pairs, D=dim)
     device_paths["es_device"] = dict(launches=es_device["k2"], B=pairs, D=dim,
                                      max_abs_err=noise_runs["es"]["device"]["k2_max_abs_err"])

@@ -37,8 +37,10 @@ The counterpart of the JAX package's utils/config.py. Two schemas:
 engine, ``HumanoidTrap`` on the humanoid in ``deceptive_humanoid_xml``'s
 trap world (the JAX package's config.py:60-74); they need gymnasium and
 mujoco, and raise without them. Any other game runs on the Atari host
-engine (256 slots unless ``env_kwargs`` says otherwise): ToyCatch for
-'toy', an ALE game where the engine was built with ALE.
+engine: ToyCatch for 'toy' (the engine's own 64 slots unless
+``env_kwargs`` says otherwise, as the JAX package's config.py:54-55 makes
+it), an ALE game where the engine was built with ALE (256 slots unless
+``env_kwargs`` says otherwise).
 ``<Game>NoFrameskip-v4`` ids run that game with EpisodicLife on, on
 ToyCatch where the engine has no ALE, as the JAX package runs them (its
 config.py:34-53). An experiment's own ``env_kwargs`` (``humanoid_nses.json``'s
@@ -155,7 +157,7 @@ def resolve_env(env_id: str, **kwargs):
         return envs.make(game, **{"batch_size": 256, "episodic_life": True, **kwargs})
     if env_id.split("-")[0] == "CartPole":
         env_id = "gym." + env_id
-    if env_id == "maze" or env_id.startswith("gym."):
+    if env_id in ("maze", "toy") or env_id.startswith("gym."):
         return envs.make(env_id, **kwargs)
     family = env_id.split("-")[0]
     if family in mujoco.MUJOCO_FAMILIES:

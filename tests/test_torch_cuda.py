@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import MIDPOINT, vbn_all_ties_case, vbn_random_ops
+from chip_smoke import MIDPOINT, recording_theta_override, vbn_all_ties_case, vbn_random_ops
 from chip_smoke import sequential as _sequential
 from deep_neuroevolution_torch.algos import es
 from deep_neuroevolution_torch.algos import ga
@@ -766,3 +766,46 @@ def test_virtual_noise_on_card(cuda_device):
     g = fitness.gradient_from_noise(vn, ids, w.to(cuda_device), 4097).cpu()
     g_cpu = fitness.gradient_from_noise(vn.to("cpu"), ids, w, 4097)
     assert float((g - g_cpu).abs().max()) <= 1e-5 * float(g_cpu.abs().max())
+
+
+def test_inspector_pca_on_card(cuda_device):
+    """The inspector's 'pca' (float64) on the card against the same on the
+    CPU within 1e-9·max, at a shape of each decomposition."""
+    from deep_neuroevolution_torch.inspector import reduce
+
+    rng = np.random.RandomState(0)
+    for n, d in ((39, 8), (300, 16), (1026, 128)):
+        X = (rng.randn(n, d) * 0.5 ** np.arange(d)) @ np.linalg.qr(rng.randn(d, d))[0]
+        card = reduce.reduce_dim(X, labels=np.zeros(n), method="pca")  # device None: cuda
+        cpu = reduce.reduce_dim(X, labels=np.zeros(n), method="pca", device="cpu")
+        assert card.dtype == np.float64 and card.shape == (n, 2)
+        assert float(np.abs(card - cpu).max()) <= 1e-9 * float(np.abs(cpu).max())
+
+
+def test_inspector_replay_point_on_card(cuda_device, tmp_path):
+    """``replay_point`` of a VBN-DQN offspring row on the card (device None:
+    cuda): θ' bit for bit the CPU's, K1 launching, a second replay equal."""
+    from deep_neuroevolution_torch.inspector import replay
+    from deep_neuroevolution_torch.inspector.interactive import Point
+    from deep_neuroevolution_torch.utils import checkpoint
+    from deep_neuroevolution_torch.utils.vine import master_extract_cloud, master_extract_parent
+
+    model = VirtualBNDQN(num_actions=4)
+    theta = model.init_theta(torch.Generator().manual_seed(1))
+    ref = torch.rand(16, 84, 84, 4, generator=torch.Generator().manual_seed(2))
+    rng = np.random.RandomState(0)
+    master_extract_cloud(str(tmp_path), 1, rng.randn(2, 2, 2), rng.rand(2, 2), np.full((2, 2), 9.0), [123, 456], [7, 8])
+    master_extract_parent(str(tmp_path), 1, rng.randn(2, 2), rng.rand(2), np.full(2, 9.0), noise_stdev=0.02,
+                          model=model, theta=theta, ref_batch=ref, seed=1)
+    table = NoiseTable.from_seed(count=2 * model.num_params)
+    pt = Point(1, False, 0.0, 0.0, 0.5, np.array([0.0, 0.0, 0.5, 9.0, 456, 8, -1.0]))
+    k1 = population_linear.launches
+    with recording_theta_override() as seen:
+        runs = [replay.replay_point(str(tmp_path), pt, noise_table=table.to(cuda_device), env_id="toy")
+                for _ in range(2)]
+    assert population_linear.launches > k1
+    _, theta_cpu, _ = checkpoint.load_policy_snapshot(replay._parent_snapshot(str(tmp_path), 1), device="cpu")
+    want = replay.perturbed_theta(theta_cpu, table, 456, -0.02)
+    for th in seen:
+        assert th.device.type == "cuda" and torch.equal(th.cpu().view(torch.int32), want.view(torch.int32))
+    assert runs[0]["returns"] == runs[1]["returns"] and runs[0]["lengths"] == runs[1]["lengths"]

@@ -37,7 +37,7 @@ _IMPORT = re.compile(
 def _port_files():
     """chip_smoke.py, the port's A/B scripts and every source of the port,
     its CUDA headers included."""
-    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("torch_*.py"))]
+    files = [ROOT / "chip_smoke.py", ROOT / "scripts" / "launch_gpu.py", *sorted((ROOT / "scripts").glob("torch_*.py"))]
     for ext in ("*.py", "*.cu", "*.cuh", "*.cpp", "*.h", "*.hpp"):
         files += [p for p in PORT.rglob(ext) if "_build" not in p.parts]
     return files
@@ -156,6 +156,19 @@ def test_mujoco_modules_import_without_gymnasium():
                        env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert p.returncode == 0, p.stderr[-2000:]
     assert "refused: env id 'Humanoid-v1' needs gymnasium and mujoco" in p.stdout
+
+
+def test_inspector_modules_are_listed():
+    """The last slice: a counterpart of each of the JAX package's seven
+    inspector files, every one among the files the import check reads, and
+    the GPU launcher too."""
+    jax_inspector = sorted(p.name for p in (ROOT / "deep_neuroevolution_tpu" / "inspector").glob("*.py"))
+    assert len(jax_inspector) == 7
+    for name in jax_inspector:
+        module = "deep_neuroevolution_torch.inspector" + ("" if name == "__init__.py" else "." + name[:-3])
+        assert module in PORT_MODULES
+        assert PORT / "inspector" / name in _port_files()
+    assert ROOT / "scripts" / "launch_gpu.py" in _port_files()
 
 
 def test_slice_two_modules_are_listed():
