@@ -228,7 +228,24 @@ ends:
    two full-size maze_es.json generations (K2 once each; the replays'
    trajectories ``[400, 1, 2]``, teacher-forced over their 400 steps).
    Where matplotlib does not import the phase says that the GUI and
-   plot.py were not run (an import-spec check).
+   plot.py were not run (an import-spec check);
+32. the learning campaigns' scripts at a smoke cut, each through its
+   ``main`` into a temporary directory: scripts/run_maze_comparison_torch.py
+   (10 ES generations of 512 members, 10 NS-ES iterations of 256, an eval
+   every 5; K2 once a generation at 256 and 128 × 498), the ES parent's
+   last eval teacher-forced against the CPU over its 400 steps as in phase
+   14; scripts/parity_study_torch.py (1 seed × 3 generations per arm on the
+   maze with MujocoMLP 32×32, K2 at 128 × 1506, and the eval bit-identity
+   check, which must hold); configurations/es_toy_learn.json and
+   ga_toy_learn.json for 2 generations each through ``main train --log_dir``
+   (only the table cut, to 25M floats; K1 must launch at B=32 and K2 once a
+   generation in the ES, K3 at B=32 in the GA), then
+   scripts/assemble_toy_curves_torch.py on both logs. Each artifact's keys
+   must be the committed JAX artifact's plus ``device``; K2 at each
+   campaign shape and K3 at each B the toy GA launched it with are checked
+   against their plain versions and timed (K3 with its bound); then K1 at
+   B=32 and 8 against its plain version, timed beside ``torch.bmm`` and its
+   bound.
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -727,6 +744,16 @@ def check_top_actions(card, ref, tol: float, what: str) -> int:
     return int(clear.sum())
 
 
+def large_fused_bound(ops: dict, y):
+    """K3's (bound_ms, bound_by) on ``ops``: every operand read once and
+    the scores ``y`` written once, against its bf16 conv products and its
+    float32 fc and out layer."""
+    B = y.shape[0]
+    conv_ops = 2 * B * (441 * 256 * 32 + 121 * 512 * 64 + 121 * 576 * 64)  # bf16 products
+    f32_ops = 2 * B * (121 * 64 * 512 + 512 * 64)  # the fc (f32 x3) and the out layer
+    return bound(nbytes(*ops.values(), y), {"bfloat16": conv_ops, "float32": f32_ops})
+
+
 def check_large_fused(device) -> list:
     """K3 against its plain version on the same inputs. Tolerance
     1e-3·max|score|: both round conv1's and conv2's outputs to bf16 and sum
@@ -767,9 +794,7 @@ def check_large_fused(device) -> list:
             sparts, _ = split.prepare_batch_params((th, None))
             warm(lambda: split.batch_scores_parts(sparts, obs), 0.5)
             split_ms = cuda_ms(lambda: split.batch_scores_parts(sparts, obs), 10)
-            conv_ops = 2 * B * (441 * 256 * 32 + 121 * 512 * 64 + 121 * 576 * 64)  # bf16 products
-            f32_ops = 2 * B * (121 * 64 * 512 + 512 * 64)  # the fc (f32 x3) and the out layer
-            bound_ms, bound_by = bound(nbytes(*ops.values(), y), {"bfloat16": conv_ops, "float32": f32_ops})
+            bound_ms, bound_by = large_fused_bound(ops, y)
             row = dict(B=B, num_actions=na, max_abs_err=err, tol=tol, argmax_rows_checked=clear, ms=ms,
                        graph_ms=k3_graph_ms, plain_ms=plain_ms, split_ms=split_ms, library_ms=None, bound_ms=bound_ms,
                        bound_by=bound_by, bound_over_ms=bound_ms / ms, bound_over_graph_ms=bound_ms / k3_graph_ms)
@@ -955,9 +980,9 @@ def time_by_batch(name: str, by_batch: dict, make_call, rel_tol: float, lanes=No
 
 
 def time_large_fused_by_batch(device, by_batch: dict) -> dict:
-    """K3 at each batch size a path (the GA, the chain replay) launched it
-    with, on first-generation genomes of a 4-action LargeDQN, checked and
-    timed."""
+    """K3 at each batch size a path (the GA, the chain replay, the toy GA
+    campaign) launched it with, on first-generation genomes of a 4-action
+    LargeDQN, checked and timed; each row also holds K3's bound at its B."""
     import torch
 
     from deep_neuroevolution_torch.models.core import extract_patches
@@ -966,15 +991,23 @@ def time_large_fused_by_batch(device, by_batch: dict) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(7)
     model = LargeDQN(num_actions=4, forward_impl="fused")
+    bounds = {}
 
     def make_call(B):
         parts, _ = model.prepare_batch_params((random_genomes(model, B, gen, device), None))
         obs = torch.rand((B, 84, 84, 4), generator=gen, device=device)
         ops = dict(parts["__fused_lg__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+        bounds[B] = large_fused_bound(ops, torch.empty((B, fk.NOUT), dtype=torch.float32))
         return lambda: fk.large_dqn_fused_scores(ops), lambda: fk.large_dqn_fused_scores_plain(ops)
 
     # as phase 5: 1e-3·max|score| over the 4 actions (the other lanes carry the -1e9 bias)
-    return time_by_batch("large_dqn_fused_scores", by_batch, make_call, 1e-3, lanes=4)
+    out = time_by_batch("large_dqn_fused_scores", by_batch, make_call, 1e-3, lanes=4)
+    for r in out["rows"]:
+        r["bound_ms"], r["bound_by"] = bounds[r["B"]]
+    print("large_dqn_fused_scores_bound_by_batch " + json.dumps(
+        {str(r["B"]): dict(bound_ms=r["bound_ms"], bound_by=r["bound_by"], graph_ms=r["graph_ms"]) for r in out["rows"]}),
+        flush=True)
+    return out
 
 
 def time_conv_chain_by_batch(device, by_batch: dict) -> dict:
@@ -2530,6 +2563,7 @@ def replay_large_chain(device) -> dict:
                lengths=stats["lengths"], forwards_recorded=len(calls), teacher_forced_max_abs_err=err,
                teacher_forced_tol=tol, near_ties=near,
                k3_graph_ms_by_batch={str(r["B"]): r["graph_ms"] for r in timed["rows"]},
+               k3_bound_ms_by_batch={str(r["B"]): r["bound_ms"] for r in timed["rows"]},
                k3_plain_max_abs_err_by_batch={str(r["B"]): r["max_abs_err"] for r in timed["rows"]})
     print("replay_large_chain " + json.dumps(out), flush=True)
     require(out["k3"] > 0, "replay of a LargeDQN chain: K3 never launched")
@@ -3490,6 +3524,204 @@ def run_inspector(device, smi: str) -> dict:
     return out
 
 
+# phase 32: the learning campaigns' scripts (scripts/*_torch.py) at a smoke cut
+CAMPAIGN_MAZE = dict(es_gens=10, ns_iters=10, eval_every=5)
+CAMPAIGN_PARITY = dict(seeds=1, gens=3)
+CAMPAIGN_TOY = (("es", "es_toy_learn.json"), ("ga", "ga_toy_learn.json"))
+CAMPAIGN_TOY_GENERATIONS = 2
+CAMPAIGN_TOY_OVERRIDES = {"noise_size": 25_000_000}  # phase 4's table cut; nothing else of either file
+CAMPAIGN_K1_CASES = ((32, 3872, 256, "float32"), (8, 3872, 256, "float32"))  # the toy ES's B, and phase 20's
+
+
+def campaign_script(name: str):
+    """A campaign script of scripts/, imported by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"campaign_{name}", ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def same_keys(art: dict, jax_file: str, what: str) -> None:
+    """The artifact's keys are the committed JAX artifact's plus ``device``,
+    and each of its entries that is a dict there holds at least that
+    dict's keys."""
+    want = json.loads((ROOT / "results" / jax_file).read_text())
+    require(set(art) == set(want) | {"device"}, f"{what}: keys {sorted(art)}, want {sorted(want)} + device")
+    for k, v in want.items():
+        if isinstance(v, dict):
+            require(isinstance(art[k], dict) and set(v) <= set(art[k]), f"{what}: {k} lacks {set(v) - set(art[k])}")
+    require(isinstance(art["device"], dict) and art["device"]["card"] and art["device"]["host_cpu"],
+            f"{what}: no device entry")
+
+
+def campaign_k2_rows(seen: list, table, dim: int, l2_rate: float, shapes: dict) -> dict:
+    """K2 on the first recorded call of each pair count in ``shapes`` (name
+    → pairs): checked against its plain version and timed (phase 3's
+    ``k2_case``)."""
+    rows = {}
+    for name, pairs in shapes.items():
+        idx, w = next((i, w) for i, w in seen if i.shape[0] == pairs)
+        rows[name] = k2_case(table.device, table, idx, w, dim, l2_rate)
+    return rows
+
+
+def run_campaign_maze(device, work: Path, l2_rate: float) -> dict:
+    """run_maze_comparison_torch.py's ``main`` at the smoke cut: ES and
+    NS-ES at the JAX defaults (512 and 256 members, the 5M table) for
+    CAMPAIGN_MAZE's generations. K2 once a generation; the distances
+    finite and within the maze's diagonal; the artifact's keys the JAX
+    one's; the ES parent's last eval teacher-forced against the CPU."""
+    import torch
+
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
+
+    mod = campaign_script("run_maze_comparison_torch")
+    evals, real = [], mod.make_eval
+
+    def recording(env, model):  # keeps each θ the script evaluates, and the eval's result
+        ev = real(env, model)
+
+        def eval_theta(theta):
+            out = ev(theta)
+            evals.append((env, model, theta.detach().clone(), out))
+            return out
+        return eval_theta
+
+    mod.make_eval = recording
+    c = CAMPAIGN_MAZE
+    path = work / "maze_comparison_torch.json"
+    argv = ["--es_gens", str(c["es_gens"]), "--ns_iters", str(c["ns_iters"]), "--eval_every", str(c["eval_every"]),
+            "--out", str(path), "--device", str(device)]
+    with record_k2() as seen:
+        zero_counters()
+        art, seconds = synced_seconds(lambda: mod.main(argv))
+        launches = read_counters()
+    print("campaign_maze launches " + json.dumps(launches), flush=True)
+    require(launches["noise_gradient"] == len(seen) == c["es_gens"] + c["ns_iters"],
+            f"maze comparison: K2 launched {launches['noise_gradient']} times")
+    same_keys(json.loads(path.read_text()), "maze_comparison.json", "maze_comparison_torch.json")
+    env = evals[0][0]
+    segs = env.cfg["segs"]
+    diag = math.hypot(np.ptp(segs[:, [0, 2]]), np.ptp(segs[:, [1, 3]]))
+    es, ns = art["es"], art["nses"]
+    dists = [es["best_offspring_dist"], es["final_parent_dist"], ns["best_offspring_dist"], *ns["final_parent_dists"]]
+    require(all(math.isfinite(d) and 0 <= d <= diag for d in dists), f"maze comparison: distances {dists}")
+    require(es["generations"] == c["es_gens"] and ns["iterations"] == c["ns_iters"] and len(ns["final_parent_dists"]) == 3,
+            "maze comparison: generations, iterations or parents")
+    n_es = c["es_gens"] // c["eval_every"]
+    _, model, theta, (ret, bc) = evals[n_es - 1]  # the ES parent's last eval
+    require(-ret == es["final_parent_dist"], "maze comparison: the ES parent's eval is not the artifact's")
+    forced = maze_teacher_forced(env, model, theta[None], "campaign_maze_es_parent")
+    last = forced.pop("positions")[-1, 0].numpy()
+    require(float(np.abs(last - bc).max()) <= 1e-4, f"maze comparison: the eval's BC {bc} is not its episode's {last}")
+    table = NoiseTable.from_seed(count=5_000_000, device=device)  # the script's table, built again
+    k2 = campaign_k2_rows(seen, table.noise, model.num_params, l2_rate,
+                          {"es": es["population"] // 2, "nses": ns["population"] // 2})
+    del table
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds, launches=launches, es_s_per_gen=es["s_per_gen"], ns_s_per_gen=ns["s_per_gen"],
+                es_final_parent_dist=es["final_parent_dist"], ns_final_parent_dists=ns["final_parent_dists"],
+                teacher_forced=forced, k2=k2)
+
+
+def run_campaign_parity(device, work: Path, l2_rate: float) -> dict:
+    """parity_study_torch.py's ``main`` at CAMPAIGN_PARITY's cut: both arms
+    on the maze with MujocoMLP 32×32 (256 members), then the eval
+    bit-identity check, which must hold. K2 once a generation."""
+    import torch
+
+    from deep_neuroevolution_torch.models import MujocoMLP
+    from deep_neuroevolution_torch.ops.noise import NoiseTable
+
+    mod = campaign_script("parity_study_torch")
+    c = CAMPAIGN_PARITY
+    path = work / "parity_obstat_torch.json"
+    argv = ["--seeds", str(c["seeds"]), "--gens", str(c["gens"]), "--out", str(path), "--device", str(device)]
+    with record_k2() as seen:
+        zero_counters()
+        art, seconds = synced_seconds(lambda: mod.main(argv))
+        launches = read_counters()
+    print("campaign_parity launches " + json.dumps(launches), flush=True)
+    arms_gens = len(mod.ARMS) * c["seeds"] * c["gens"]
+    require(launches["noise_gradient"] == len(seen) == arms_gens + 2 * 3,
+            f"parity study: K2 launched {launches['noise_gradient']} times")
+    same_keys(json.loads(path.read_text()), "parity_obstat.json", "parity_obstat_torch.json")
+    require(art["verdict"]["eval_count_bit_identical_theta"] is True,
+            "parity study: θ differs between eval counts 0 and 8 on the card")
+    for name, arm in art["arms"].items():
+        require(all(math.isfinite(x) and x <= 0 for curve in arm["curves"] for x in curve), f"parity {name}: curves")
+    dim = MujocoMLP(obs_dim=11, ac_dim=2, ac_low=(-1.0, -1.0), ac_high=(1.0, 1.0), hidden_dims=(32, 32)).num_params
+    table = NoiseTable.from_seed(count=2_000_000, device=device)
+    k2 = campaign_k2_rows(seen, table.noise, dim, l2_rate, {"mujoco_mlp": 128})
+    del table
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds, launches=launches, verdict=art["verdict"],
+                s_per_gen={k: a["s_per_gen"] for k, a in art["arms"].items()}, k2=k2)
+
+
+def run_campaign_toy(device, work: Path, l2_rate: float) -> dict:
+    """es_toy_learn.json and ga_toy_learn.json through ``main train
+    --log_dir`` for CAMPAIGN_TOY_GENERATIONS generations each (only the
+    table cut), then assemble_toy_curves_torch.py on both logs. ES: K1 at
+    B=32 and K2 once a generation (128 × 1,004,852); GA: K3 at B=32."""
+    import torch
+
+    from deep_neuroevolution_torch import main as cli
+    from deep_neuroevolution_torch.ops import fused_dqn as fk
+
+    asm = campaign_script("assemble_toy_curves_torch")
+    out = {}
+    for algo, exp_file in CAMPAIGN_TOY:
+        log_dir = work / f"toy_{algo}_campaign_torch"
+        argv = ["train", "--exp_file", str(ROOT / "configurations" / exp_file), "--log_dir", str(log_dir),
+                "--iterations", str(CAMPAIGN_TOY_GENERATIONS), "--overrides", json.dumps(CAMPAIGN_TOY_OVERRIDES),
+                "--device", str(device)]
+        print("main " + " ".join(argv), flush=True)
+        with record_k2() as seen:
+            zero_counters()
+            tr, seconds = synced_seconds(lambda: cli.cmd_train(cli.build_parser().parse_args(argv)))
+            launches = read_counters()
+            k1_by_batch = by_batch_k1()
+            k3_by_batch = dict(fk.large_dqn_fused_scores.launches_by_batch)
+        print(f"campaign_toy_{algo} launches " + json.dumps({**launches, "population_linear.by_batch": k1_by_batch,
+                                                            "large_dqn_fused_scores.by_batch": k3_by_batch}), flush=True)
+        fn = asm.assemble_es if algo == "es" else asm.assemble_ga
+        art = fn(out=str(work / f"toy_{algo}_curve_torch.json"), log_dir=str(log_dir), device=str(device))
+        same_keys(art, f"toy_{algo}_curve_r05.json", f"toy_{algo}_curve_torch.json")
+        require(art["generations"] == CAMPAIGN_TOY_GENERATIONS, f"toy {algo}: {art['generations']} generations")
+        row = dict(seconds=seconds, launches=launches, s_per_gen=art["s_per_gen"],
+                   final_mean_last5=art["final_mean_last5"])
+        if algo == "es":
+            require(launches["noise_gradient"] == len(seen) == CAMPAIGN_TOY_GENERATIONS,
+                    f"toy ES: K2 launched {launches['noise_gradient']} times")
+            require(k1_by_batch.get("B=32 bulk", 0) > 0, f"toy ES: K1 never launched at B=32 ({k1_by_batch})")
+            row.update(k1_by_batch=k1_by_batch, k2=campaign_k2_rows(seen, tr.noise.noise, tr.model.num_params, l2_rate,
+                                                                    {"vbn_dqn": 128}))
+        else:
+            require(k3_by_batch.get(32, 0) > 0, f"toy GA: K3 never launched at B=32 ({k3_by_batch})")
+            row.update(k3_by_batch=k3_by_batch, k3=time_large_fused_by_batch(device, k3_by_batch))
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+        out[algo] = row
+    return out
+
+
+def run_campaigns(device, l2_rate: float) -> dict:
+    """Phase 32 (see the module docstring)."""
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_campaigns_")
+    try:
+        root = Path(work.name)
+        out = dict(maze=run_campaign_maze(device, root, l2_rate), parity=run_campaign_parity(device, root, l2_rate),
+                   toy=run_campaign_toy(device, root, l2_rate))
+    finally:
+        work.cleanup()
+    out["k1"] = [check_population_linear(device, [case]) for case in CAMPAIGN_K1_CASES]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3761,6 +3993,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     with Phase("the inspector on the card: dumps, load_data, process_bc, point replays"):
         insp = run_inspector(device, smi)
+    torch.cuda.empty_cache()
+    with Phase("the learning campaigns at a smoke cut: maze ES against NS-ES, the parity study, the toy curves"):
+        camp = run_campaigns(device, k2["l2_bytes_per_s"])
+    print("campaigns " + json.dumps(dict(
+        card=smi, maze=dict(seconds=camp["maze"]["seconds"], es_s_per_gen=camp["maze"]["es_s_per_gen"],
+                            ns_s_per_gen=camp["maze"]["ns_s_per_gen"], k2=camp["maze"]["launches"]["noise_gradient"],
+                            es_final_parent_dist=camp["maze"]["es_final_parent_dist"],
+                            ns_final_parent_dists=camp["maze"]["ns_final_parent_dists"]),
+        parity=dict(seconds=camp["parity"]["seconds"], s_per_gen=camp["parity"]["s_per_gen"],
+                    verdict=camp["parity"]["verdict"], k2=camp["parity"]["launches"]["noise_gradient"]),
+        toy={a: dict(seconds=r["seconds"], s_per_gen=r["s_per_gen"], k1=r["launches"]["population_linear"],
+                     k2=r["launches"]["noise_gradient"], k3=r["launches"]["large_dqn_fused_scores"])
+             for a, r in camp["toy"].items()},
+    )), flush=True)
     for key, run in (("humanoid_es", humanoid), ("humanoid_nses", humanoid_ns)):
         device_paths[key] = dict(k2_path_row(run["launches"], run["k2"]), physics=run["stats"]["physics"])
     device_paths["pod1_maze_es"] = dict(launches=pod_one["es"]["launches"]["noise_gradient"], B=256, D=498)
@@ -3788,6 +4034,14 @@ def main() -> int:
     device_paths["inspector_es_atari"] = dict(launches=insp["atari"]["launches"]["noise_gradient"], B=pairs, D=dim)
     device_paths["inspector_maze_es"] = dict(launches=insp["maze"]["launches"]["noise_gradient"], B=256, D=498)
     device_paths["es_virtual"] = dict(launches=es_virtual["k2"], B=pairs, D=dim)
+    toy_es, toy_ga = camp["toy"]["es"], camp["toy"]["ga"]
+    ns_k1["campaign_toy_es"] = dict(launches=toy_es["launches"]["population_linear"], by_batch=toy_es["k1_by_batch"])
+    for name, run in (("maze", camp["maze"]), ("parity", camp["parity"]), ("toy_es", toy_es)):
+        device_paths[f"campaign_{name}"] = dict(launches=run["launches"]["noise_gradient"],
+                                                shapes={k: k2_path_row(run["launches"], r) for k, r in run["k2"].items()})
+    pod_k3["campaign_toy_ga"] = dict(
+        launches=toy_ga["launches"]["large_dqn_fused_scores"], by_batch={str(b): n for b, n in toy_ga["k3_by_batch"].items()},
+        **{f"{k}_by_batch": {str(r["B"]): r[k] for r in toy_ga["k3"]["rows"]} for k in ("graph_ms", "bound_ms", "max_abs_err")})
     device_paths["es_device"] = dict(launches=es_device["k2"], B=pairs, D=dim,
                                      max_abs_err=noise_runs["es"]["device"]["k2_max_abs_err"])
 
@@ -3816,7 +4070,10 @@ def main() -> int:
     kernels = [
         entry("population_linear", "deep_neuroevolution_torch/csrc/population_linear.cu",
               "deep_neuroevolution_tpu/ops/pallas_forward.py:59", es_launches, k1, variant=k1["variant"],
-              other_paths=ns_k1),
+              other_paths=ns_k1,
+              other_shapes=[{k: r[k] for k in ("B", "K", "N", "dtype", "variant", "ms", "graph_ms", "bound_ms",
+                                               "bound_by", "plain_ms", "library_ms", "library_graph_ms", "max_abs_err")}
+                            for r in camp["k1"]]),
         entry("noise_gradient", "deep_neuroevolution_torch/csrc/noise_gradient.cu",
               "deep_neuroevolution_tpu/ops/pallas_kernels.py:120", es_launches, k2, B=k2["B"],
               table=k2["table"], graph_ms=k2["graph_ms"], l2_floor_ms=k2["l2_floor_ms"],
@@ -3830,6 +4087,7 @@ def main() -> int:
               other_paths={"replay_large_chain": dict(
                   launches=replays["large_chain"]["k3"], by_batch=replays["large_chain"]["k3_by_batch"],
                   graph_ms_by_batch=replays["large_chain"]["k3_graph_ms_by_batch"],
+                  bound_ms_by_batch=replays["large_chain"]["k3_bound_ms_by_batch"],
                   max_abs_err_by_batch=replays["large_chain"]["k3_plain_max_abs_err_by_batch"],
                   teacher_forced_max_abs_err=replays["large_chain"]["teacher_forced_max_abs_err"]), **pod_k3}),
         entry("vbn_dqn_fused1_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",

@@ -63,9 +63,9 @@ into the running stats after the update, as on the device arm.
 Host-side draws (θ init, noise offsets, rollout seeds) come from one CPU
 ``torch.Generator`` seeded with ``seed``; ``_draw_round`` is the single
 place a round's randomness is drawn, ``_draw_eval_seed`` the eval
-episodes'. On a device env a rollout seed seeds a generator on the device
-(``_episode_starts``) for the episodes' reset states, action noise and
-obs-stat sampling.
+episodes' (every generation, whether or not any run). On a device env a
+rollout seed seeds a generator on the device (``_episode_starts``) for
+the episodes' reset states, action noise and obs-stat sampling.
 """
 
 from __future__ import annotations
@@ -432,7 +432,10 @@ class ESTrainer:
         episodes of the pre-update θ."""
         cfg = self.config
         step_tstart = time.time()
-        eval_seed = self._draw_eval_seed() if cfg.num_eval_episodes > 0 else None
+        # drawn with or without eval episodes, as the JAX package splits keval
+        # (es.py:661): θ's draws never depend on the eval count
+        seed = self._draw_eval_seed()
+        eval_seed = seed if cfg.num_eval_episodes > 0 else None
         npairs = self._npairs_round()
         target = cfg.population_size or 2 * npairs
         rounds = []
@@ -506,7 +509,10 @@ class ESTrainer:
         on the host, and the obs-stat merge."""
         cfg = self.config
         step_tstart = time.time()
-        eval_seed = self._draw_eval_seed() if cfg.num_eval_episodes > 0 else None
+        # drawn with or without eval episodes, as the JAX package splits keval
+        # (es.py:661): θ's draws never depend on the eval count
+        seed = self._draw_eval_seed()
+        eval_seed = seed if cfg.num_eval_episodes > 0 else None
         npairs = self._npairs_round()
         if not self.quota_mode:
             npairs = min(npairs, max((cfg.population_size or 2 * npairs) // 2, 1))

@@ -3,7 +3,8 @@ TensorBoard events.
 
 The port's own copy of the JAX package's utils/tabular.py (after
 gpu_implementation/tabular_logger.py:19-237), cut to what the port calls:
-start/stop, record_tabular, dump_tabular, log. The metric names are the
+start/stop, record_tabular, dump_tabular, log, and ``quiet`` (dumps
+clear the row unprinted while it is open). The metric names are the
 reference's. With a log directory, each ``dump_tabular`` also appends one
 scalar event (step = the dump's ordinal) to an ``events.out.tfevents.*``
 file there (utils/tb_events.py), as the JAX package's :26-41 does. Not
@@ -12,6 +13,7 @@ ported: log levels.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import os
@@ -25,6 +27,7 @@ from .tb_events import EventsWriter
 class TabularLogger:
     def __init__(self, log_dir: Optional[str] = None):
         self.log_dir = log_dir
+        self.echo = True  # print each dump's table on stdout (``quiet`` clears it)
         self._kvs: Dict[str, Any] = {}
         self._text = None
         self._jsonl = None
@@ -55,8 +58,9 @@ class TabularLogger:
             lines.append(f"| {k.ljust(key_width)} | {s.ljust(val_width)} |")
         lines.append(dashes)
         out = "\n".join(lines)
-        print(out)
-        sys.stdout.flush()
+        if self.echo:
+            print(out)
+            sys.stdout.flush()
         if self._text:
             self._text.write(out + "\n")
             self._text.flush()
@@ -102,6 +106,19 @@ def stop() -> None:
     global _logger
     _logger.close()
     _logger = TabularLogger()
+
+
+@contextlib.contextmanager
+def quiet():
+    """While open, a dump writes its row to the log directory's files, if
+    any, and prints nothing (the campaign scripts, whose generations would
+    otherwise print a table each)."""
+    saved = _logger.echo
+    _logger.echo = False
+    try:
+        yield
+    finally:
+        _logger.echo = saved
 
 
 def record_tabular(key, val) -> None:

@@ -35,9 +35,10 @@ _IMPORT = re.compile(
 
 
 def _port_files():
-    """chip_smoke.py, the port's A/B scripts and every source of the port,
-    its CUDA headers included."""
-    files = [ROOT / "chip_smoke.py", ROOT / "scripts" / "launch_gpu.py", *sorted((ROOT / "scripts").glob("torch_*.py"))]
+    """chip_smoke.py, the port's A/B and campaign scripts and every source
+    of the port, its CUDA headers included."""
+    files = [ROOT / "chip_smoke.py", ROOT / "scripts" / "launch_gpu.py", *sorted((ROOT / "scripts").glob("torch_*.py")),
+             *sorted((ROOT / "scripts").glob("*_torch.py"))]
     for ext in ("*.py", "*.cu", "*.cuh", "*.cpp", "*.h", "*.hpp"):
         files += [p for p in PORT.rglob(ext) if "_build" not in p.parts]
     return files
@@ -63,7 +64,7 @@ def test_no_jax_import_and_no_cpp_extension_in_the_port():
     kernel's note does, is fine), and none uses torch.utils.cpp_extension or
     torch/extension.h."""
     names = {p.name for p in _port_files()}
-    assert {"dqn_conv_mma.cuh", "bulk_ring.cuh", "torch_k3_ab.py", "torch_ab.py"} <= names
+    assert {"dqn_conv_mma.cuh", "bulk_ring.cuh", "torch_k3_ab.py", "torch_ab.py", "parity_study_torch.py"} <= names
     offenders = []
     for path in _port_files():
         text = path.read_text()

@@ -253,11 +253,12 @@ def test_padded_round_and_mirrored_pairs(mirror):
     """2 pairs a round (``eval_batch``) on 8 slots, quota 8 episodes: two
     padded rounds. With σ = 0 the pair's members are one θ, so with
     ``mirror_crn`` each pair's returns and lengths are equal; without it
-    their episodes differ."""
+    their episodes differ (a cutoff of 100 steps, past the first game
+    overs, so that they show it)."""
     env = TorchAtari("toy", batch_size=8, num_threads=2)
     tr = tes.ESTrainer(env, tmodels.SmallDQN(num_actions=env.num_actions),
                        tes.ESConfig(episodes_per_batch=8, eval_batch=2, mirror_crn=mirror, noise_stdev=0.0,
-                                    episode_cutoff_mode=30, num_eval_episodes=0),
+                                    episode_cutoff_mode=100, num_eval_episodes=0),
                        noise_table=TorchNoise.from_seed(count=COUNT, device="cpu"), seed=2, device="cpu")
     st = tr.train_step()
     tr.close()
