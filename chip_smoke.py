@@ -44,7 +44,7 @@ ends:
 8. one random-search generation of configurations/rs_atari_config.json
    (SmallDQN) through the Python API with ``conv_impl='fused'``: the K5
    and K1 counters must move; then K5 is timed (in a CUDA graph) at each
-   batch size the generation launched it with;
+   batch size the generation launched it with, beside its bound;
 9. kernels K4 (vbn_dqn_fused1_scores) and K6 (vbn_dqn_fused_scores), the
    VBN-DQN's whole-net forwards, against their plain versions at B=1, 4,
    8, 128 and 256 (each member split over several blocks at B ≤ 44, the
@@ -245,7 +245,21 @@ ends:
    campaign shape and K3 at each B the toy GA launched it with are checked
    against their plain versions and timed (K3 with its bound); then K1 at
    B=32 and 8 against its plain version, timed beside ``torch.bmm`` and its
-   bound.
+   bound;
+33. the LargeDQN fc race (scripts/exp_large_fwd_torch.py): kernel K7
+   (``fc_ktiled``) at each of the JAX script's tiles (1024, 2048, 3872 rows)
+   and K8 (``fc_whole``) against their plain versions at the race's shape
+   (B=256, x [256, 7744] and W [256, 7744, 512] bf16) and at one odd shape
+   (B=5, K=5000, N=200: a tail tile at every tile size, a partly filled
+   column chunk), each repeated bit for bit and timed back-to-back and in a
+   CUDA graph beside its bound and one ``torch.bmm``, K1 on the race's
+   operands beside them; K3 in the race's mode pairs ('fma'/'scratch',
+   'fma'/'ksplit', 'mxu_t'/'ksplit') against their plain versions at B=256
+   and 18 actions, timed ('mxu_t' also farther than the limit from the
+   plain 'fma' and, on average, within a quarter of the plain versions'
+   distance, so that a kernel without x3's rounding fails); then the script's ``main`` at B=256 once: K7, K8,
+   K3's 'mxu_t' variant and K5 must launch, and ``results_ms`` must hold
+   a number under every key of results/exp_large_fwd_r04.json.
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -714,13 +728,16 @@ def zero_counters() -> None:
     k1.launches_by_batch.clear()
     for name in ("large_dqn_fused_scores", "dqn_conv_chain_fused", "vbn_dqn_fused1_scores", "vbn_dqn_fused_scores"):
         kernel_counters()[name].launches_by_batch.clear()
+    kernel_counters()["large_dqn_fused_scores"].launches_by_mode.clear()
 
 
 def read_counters() -> dict:
-    """Each kernel's launches, and K1's by variant."""
+    """Each kernel's launches, K1's by variant and K3's 'mxu_t' variant's."""
     counts = {name: f.launches for name, f in kernel_counters().items()}
     k1 = kernel_counters()["population_linear"]
-    return {**counts, "population_linear.bulk": k1.bulk_launches, "population_linear.general": k1.general_launches}
+    by_mode = kernel_counters()["large_dqn_fused_scores"].launches_by_mode
+    return {**counts, "population_linear.bulk": k1.bulk_launches, "population_linear.general": k1.general_launches,
+            "large_dqn_fused_scores.mxu_t": sum(n for m, n in by_mode.items() if m.startswith("mxu_t/"))}
 
 
 def random_genomes(model, B: int, gen, device):
@@ -1013,20 +1030,28 @@ def time_large_fused_by_batch(device, by_batch: dict) -> dict:
 def time_conv_chain_by_batch(device, by_batch: dict) -> dict:
     """K5 at each batch size the RS generation launched it with, on
     first-generation SmallDQN genomes in float32 (the RS's route), checked
-    and timed."""
+    and timed; each row also holds K5's bound at its B."""
     import torch
 
     from deep_neuroevolution_torch.models.dqn import SmallDQN
     from deep_neuroevolution_torch.ops import fused_dqn as fk
 
     gen = torch.Generator(device=device).manual_seed(8)
+    bounds = {}
 
     def make_call(B):
         *_, args = conv_chain_case(SmallDQN, "float32", B, gen, device)
+        bounds[B] = conv_chain_bound(SmallDQN, "float32", B, args, torch.empty((B, fk.P2, 32)))
         return lambda: fk.dqn_conv_chain_fused(*args), lambda: fk.dqn_conv_chain_plain(*args)
 
     # as phase 6 in float32: 1e-5·max|x|
-    return time_by_batch("dqn_conv_chain_fused", by_batch, make_call, 1e-5)
+    out = time_by_batch("dqn_conv_chain_fused", by_batch, make_call, 1e-5)
+    for r in out["rows"]:
+        r["bound_ms"], r["bound_by"] = bounds[r["B"]]
+    print("dqn_conv_chain_fused_bound_by_batch " + json.dumps(
+        {str(r["B"]): dict(bound_ms=r["bound_ms"], bound_by=r["bound_by"], graph_ms=r["graph_ms"]) for r in out["rows"]}),
+        flush=True)
+    return out
 
 
 def run_rs(device) -> dict:
@@ -3722,6 +3747,186 @@ def run_campaigns(device, l2_rate: float) -> dict:
     return out
 
 
+# phase 33: the race's fc shape (scripts/exp_large_fwd_torch.py at B=256),
+# K7's tiles there (exp_large_fwd.py:186-193), and an odd shape whose K
+# leaves a tail tile at every one of them and whose N fills part of a
+# column chunk
+FC_RACE_SHAPE = (256, 7744, 512)
+FC_ODD_SHAPE = (5, 5000, 200)
+FC_TILES = (1024, 2048, 3872)
+
+
+def fc_operands(B: int, K: int, N: int, gen, device):
+    """x [B, K] and W [B, K, N] in bf16, N(0, 1), W member by member."""
+    import torch
+
+    x = torch.randn((B, K), generator=gen, device=device).to(torch.bfloat16)
+    W = torch.empty((B, K, N), dtype=torch.bfloat16, device=device)
+    for b in range(B):
+        W[b] = torch.randn((K, N), generator=gen, device=device)
+    return x, W
+
+
+def check_fc_kernel(name: str, call, plain, x, W, library_ms: float) -> dict:
+    """A population mat-vec kernel (K7 at one tile, K8, or K1) on x, W
+    against its plain version: float32 sums in another order, within
+    1e-5·max|y|; a second launch bit for bit; timed back-to-back and in a
+    CUDA graph beside its bound (x, W and y once; 2·B·K·N bf16 operations)
+    and one ``torch.bmm``."""
+    import torch
+
+    y, ref = call(), plain()
+    torch.cuda.synchronize()
+    err, tol = float((y - ref).abs().max()), 1e-5 * float(ref.abs().max())
+    require(bool(torch.isfinite(y).all()), f"{name} returned non-finite values")
+    require(err <= tol, f"{name} {tuple(W.shape)}: max abs err {err} > {tol}")
+    require(torch.equal(y, call()), f"{name} {tuple(W.shape)}: two launches differ")
+    del y, ref
+    warm(call, 0.3)
+    ms, gms = cuda_ms(call, 20), graph_ms(call)
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    (B, K), N = x.shape, W.shape[2]
+    bound_ms, bound_by = bound(nbytes(x, W) + B * N * 4, 2 * B * K * N, "bfloat16")
+    row = dict(name=name, B=B, K=K, N=N, max_abs_err=err, tol=tol, ms=ms, graph_ms=gms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bound_over_graph_ms=bound_ms / gms)
+    print("fc_race_kernel " + json.dumps(row), flush=True)
+    return row
+
+
+def check_fc_shape(mod, B: int, K: int, N: int, gen, device) -> dict:
+    """K7 at each of FC_TILES and K8 on one shape (``mod``: the race
+    script, whose wrappers they are); at the race's shape also K1 on the
+    same operands."""
+    import torch
+
+    from deep_neuroevolution_torch.ops import population_linear as k1
+
+    x, W = fc_operands(B, K, N, gen, device)
+    library_ms = cuda_ms(lambda: torch.bmm(x[:, None, :], W), 20)
+    rows = {}
+    for kt in FC_TILES:
+        rows[f"fc_ktiled kt={kt}"] = check_fc_kernel(
+            f"fc_ktiled kt={kt}", lambda kt=kt: mod.fc_ktiled(x, W, kt), lambda kt=kt: mod.fc_ktiled_plain(x, W, kt),
+            x, W, library_ms)
+    rows["fc_whole"] = check_fc_kernel("fc_whole", lambda: mod.fc_whole(x, W), lambda: mod.fc_whole_plain(x, W), x, W,
+                                       library_ms)
+    if (B, K, N) == FC_RACE_SHAPE:
+        rows["population_linear"] = check_fc_kernel("population_linear", lambda: k1.population_linear(x, W),
+                                                    lambda: k1.population_linear_plain(x, W), x, W, library_ms)
+    del x, W
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_large_fused_modes(mod, device) -> dict:
+    """K3 in each of the race's mode pairs (``mod``: the race script)
+    against its plain version at the race's B=256 and 18 actions, within
+    1e-3·max|score| as phase 5 (the 'mxu_t' variant rounds x3 to bf16, a
+    rounding point where the card and the plain version can fall apart at
+    a midpoint; 'ksplit' runs the 'scratch' code); a second launch bit for
+    bit; timed back-to-back and in a CUDA graph beside K3's bound. The
+    'mxu_t' kernel must also lie farther than that limit from the plain
+    'fma' on the same operands, and its mean distance from its plain
+    version must be under a quarter of the mean distance between the two
+    plain versions: a kernel that dropped x3's rounding, or rounded
+    elsewhere, fails both."""
+    import torch
+
+    from deep_neuroevolution_torch.models.core import extract_patches
+    from deep_neuroevolution_torch.models.dqn import LargeDQN
+    from deep_neuroevolution_torch.ops import fused_dqn as fk
+
+    B, na = FC_RACE_SHAPE[0], 18
+    gen = torch.Generator(device=device).manual_seed(34)
+    model = LargeDQN(num_actions=na, forward_impl="fused")
+    parts, _ = model.prepare_batch_params((random_genomes(model, B, gen, device), None))
+    obs = torch.rand((B, 84, 84, 4), generator=gen, device=device)
+    ops = dict(parts["__fused_lg__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+    del parts
+    rows = {}
+    for modes in sorted(set(mod.FUSED_MODES.values())):
+        what = f"large_dqn_fused_scores {'/'.join(modes)}"
+
+        def call(_m=modes):
+            return fk.large_dqn_fused_scores(ops, *_m)
+
+        def plain(_m=modes):
+            return fk.large_dqn_fused_scores_plain(ops, *_m)
+
+        y, ref = call(), plain()
+        torch.cuda.synchronize()
+        err = float((y[:, :na] - ref[:, :na]).abs().max())
+        tol = 1e-3 * float(ref[:, :na].abs().max())
+        require(bool(torch.isfinite(y).all()), f"{what} returned non-finite values")
+        require(err <= tol, f"{what}: max abs err {err} > {tol}")
+        clear = check_top_actions(y[:, :na], ref[:, :na], tol, what)
+        require(torch.equal(y, call()), f"{what}: two launches differ")
+        sep = {}
+        if modes[0] == "mxu_t":
+            fma = fk.large_dqn_fused_scores_plain(ops, "fma", modes[1])[:, :na]
+            sep = dict(from_plain_fma=float((y[:, :na] - fma).abs().max()),
+                       mean_over_plain_gap=float((y[:, :na] - ref[:, :na]).abs().mean()
+                                                 / (fma - ref[:, :na]).abs().mean()))
+            del fma
+            require(sep["from_plain_fma"] > tol,
+                    f"{what}: only {sep['from_plain_fma']} from the plain 'fma', inside the limit {tol}")
+            require(sep["mean_over_plain_gap"] < 0.25,
+                    f"{what}: mean error {sep['mean_over_plain_gap']} of the plain versions' gap, not under 0.25")
+        warm(call, 0.3)
+        ms, gms = cuda_ms(call, 20), graph_ms(call)
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        bound_ms, bound_by = large_fused_bound(ops, y)
+        rows["/".join(modes)] = dict(B=B, num_actions=na, fc_mode=modes[0], conv_mode=modes[1], max_abs_err=err,
+                                     tol=tol, err_over_max=err / tol * 1e-3, argmax_rows_checked=clear, ms=ms,
+                                     graph_ms=gms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                                     bound_by=bound_by, bound_over_graph_ms=bound_ms / gms, **sep)
+        print(f"{what} " + json.dumps(rows["/".join(modes)]), flush=True)
+        del y, ref
+    del ops
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_fc_race(device) -> dict:
+    """Phase 33 (see the module docstring)."""
+    import torch
+
+    from deep_neuroevolution_torch.ops import fused_dqn as fk
+
+    mod = campaign_script("exp_large_fwd_torch")
+    gen = torch.Generator(device=device).manual_seed(33)
+    shapes = {"race": check_fc_shape(mod, *FC_RACE_SHAPE, gen, device),
+              "odd": check_fc_shape(mod, *FC_ODD_SHAPE, gen, device)}
+    k3_modes = check_large_fused_modes(mod, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_race_") as work:
+        argv = ["--B", str(FC_RACE_SHAPE[0]), "--out", str(Path(work) / "exp_large_fwd_torch.json"),
+                "--device", str(device)]
+        zero_counters()
+        mod.fc_ktiled.launches = mod.fc_whole.launches = 0
+        mod.fc_ktiled.launches_by_kt.clear()
+        art, seconds = synced_seconds(lambda: mod.main(argv))
+        counts = read_counters()
+        by_kt = dict(mod.fc_ktiled.launches_by_kt)
+        by_mode = dict(fk.large_dqn_fused_scores.launches_by_mode)
+        launches = dict(counts, fc_ktiled=mod.fc_ktiled.launches, fc_whole=mod.fc_whole.launches)
+    launches["large_dqn_fused_scores.ksplit"] = by_mode.get("fma/ksplit", 0)
+    print("fc_race launches " + json.dumps(dict(launches, fc_ktiled_by_kt=by_kt, k3_by_mode=by_mode)), flush=True)
+    require(all(by_kt.get(kt, 0) > 0 for kt in FC_TILES), f"the race did not launch K7 at every tile: {by_kt}")
+    require(launches["fc_whole"] > 0, "the race never launched fc_whole")
+    require(launches["large_dqn_fused_scores.mxu_t"] > 0 and launches["large_dqn_fused_scores.ksplit"] > 0
+            and by_mode.get("fma/scratch", 0) > 0, f"the race missed a K3 mode: {by_mode}")
+    require(launches["dqn_conv_chain_fused"] > 0, "the race never launched K5")
+    ms = art["results_ms"]
+    want = json.loads((ROOT / "results" / "exp_large_fwd_r04.json").read_text())["results_ms"]
+    require(set(want) <= set(ms) and all(isinstance(v, float) and math.isfinite(v) for v in ms.values()),
+            f"results_ms {ms} lacks a number under a key of {sorted(want)}")
+    require(art["device"]["card"] != "cpu", "the race's artifact names no card")
+    print("fc_race " + json.dumps(dict(card=art["device"]["card"], seconds=seconds, B=art["B"], results_ms=ms)),
+          flush=True)
+    return dict(shapes=shapes, k3_modes=k3_modes, launches=launches, by_kt=by_kt, by_mode=by_mode, results_ms=ms,
+                seconds=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -3818,7 +4023,7 @@ def main() -> int:
     del rs
     torch.cuda.empty_cache()
     with Phase("K5 at the RS's batch sizes"):
-        time_conv_chain_by_batch(device, k5_by_batch)
+        k5_rs = time_conv_chain_by_batch(device, k5_by_batch)
 
     with Phase("K4/K6 vbn_dqn_fused"):
         vbn = check_vbn_fused(device)
@@ -4007,6 +4212,9 @@ def main() -> int:
                      k2=r["launches"]["noise_gradient"], k3=r["launches"]["large_dqn_fused_scores"])
              for a, r in camp["toy"].items()},
     )), flush=True)
+    with Phase("the LargeDQN fc race: K7, K8 and K3's modes (scripts/exp_large_fwd_torch.py)"):
+        race = run_fc_race(device)
+    torch.cuda.empty_cache()
     for key, run in (("humanoid_es", humanoid), ("humanoid_nses", humanoid_ns)):
         device_paths[key] = dict(k2_path_row(run["launches"], run["k2"]), physics=run["stats"]["physics"])
     device_paths["pod1_maze_es"] = dict(launches=pod_one["es"]["launches"]["noise_gradient"], B=256, D=498)
@@ -4096,10 +4304,40 @@ def main() -> int:
         entry("dqn_conv_chain_fused", "deep_neuroevolution_torch/csrc/dqn_conv_chain.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:422", rs_launches, k5_row,
               graph_ms=k5_row["graph_ms"], einsum_ms=k5_row["einsum_ms"],
-              launches_by_batch={str(b): n for b, n in k5_by_batch.items()}),
+              launches_by_batch={str(b): n for b, n in k5_by_batch.items()},
+              **{f"{k}_by_batch": {str(r["B"]): r[k] for r in k5_rs["rows"]} for k in ("graph_ms", "bound_ms")}),
         entry("vbn_dqn_fused_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:471", route_launches["fused"], k6_row,
               **vbn_extra("fused", k6_row)),
+    ]
+    # phase 33: K7 and K8 at the race's shape (K7's row at its first key's
+    # tile, 2048; every tile beside it), K3's modes at B=256 and 18 actions
+    race_rows, odd_rows = race["shapes"]["race"], race["shapes"]["odd"]
+    fc_keys = ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
+    kernels += [
+        entry("fc_ktiled", "deep_neuroevolution_torch/csrc/fc_ktiled.cu", "scripts/exp_large_fwd.py:73",
+              race["launches"], race_rows["fc_ktiled kt=2048"], B=FC_RACE_SHAPE[0], kt=2048,
+              graph_ms=race_rows["fc_ktiled kt=2048"]["graph_ms"],
+              launches_by_kt={str(kt): n for kt, n in race["by_kt"].items()},
+              by_kt={str(kt): {k: race_rows[f"fc_ktiled kt={kt}"][k] for k in fc_keys} for kt in FC_TILES},
+              odd_shape={str(kt): {k: odd_rows[f"fc_ktiled kt={kt}"][k] for k in fc_keys} for kt in FC_TILES},
+              race_results_ms={k: race["results_ms"][k] for k in ("fc_kt1024", "fc_kt2048", "fc_kt2048_par",
+                                                                  "fc_kt3872")}),
+        entry("fc_whole", "deep_neuroevolution_torch/csrc/fc_whole.cu", "scripts/exp_large_fwd.py:107",
+              race["launches"], race_rows["fc_whole"], B=FC_RACE_SHAPE[0], graph_ms=race_rows["fc_whole"]["graph_ms"],
+              odd_shape={k: odd_rows["fc_whole"][k] for k in fc_keys},
+              population_linear_same_operands={k: race_rows["population_linear"][k] for k in fc_keys},
+              race_results_ms={k: race["results_ms"][k] for k in ("fc_whole", "fc_xla")}),
+        entry("large_dqn_fused_scores.mxu_t", "deep_neuroevolution_torch/csrc/large_dqn_fused.cu",
+              "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:298", race["launches"], race["k3_modes"]["mxu_t/ksplit"],
+              fc_mode="mxu_t", conv_mode="ksplit", B=FC_RACE_SHAPE[0], graph_ms=race["k3_modes"]["mxu_t/ksplit"]["graph_ms"],
+              fma_scratch_graph_ms=race["k3_modes"]["fma/scratch"]["graph_ms"],
+              **{k: race["k3_modes"]["mxu_t/ksplit"][k] for k in ("from_plain_fma", "mean_over_plain_gap")},
+              race_results_ms={k: race["results_ms"][k] for k in ("fused_mxut", "fused_fma", "fused_scratch")}),
+        entry("large_dqn_fused_scores.ksplit", "deep_neuroevolution_torch/csrc/large_dqn_fused.cu",
+              "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:298", race["launches"], race["k3_modes"]["fma/ksplit"],
+              fc_mode="fma", conv_mode="ksplit", B=FC_RACE_SHAPE[0], graph_ms=race["k3_modes"]["fma/ksplit"]["graph_ms"],
+              runs="the 'scratch' code"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,19 @@
 // next product; x3 stays float32 in the fc; the out layer is float32; every
 // sum is float32.
 //
+// The TPU kernel's other modes (pallas_fused_dqn.py:229-240, :257-266,
+// :277-286), raced in scripts/exp_large_fwd.py:
+//
+// * fc_mode 'mxu_t' rounds x3 to bf16 before the fc, a rounding point of
+//   its own: the entry `nevo_large_dqn_fused_mxu_t` runs this kernel with
+//   kRoundX3, which rounds x3 in shared memory after conv3. Its fc sums
+//   in this kernel's order, not channel by channel as the TPU's M = 1
+//   dots do: the two differ only in the order of float32 sums.
+// * conv_mode 'ksplit' sums each conv's taps one at a time, with the same
+//   rounding points as 'scratch', so it differs from 'scratch' only in the
+//   order of its float32 sums. The tensor cores here sum in steps of 16 k
+//   either way, so 'ksplit' runs this same code (ops/fused_dqn.py).
+//
 // What bounds it on the H100: bytes. A member reads 8,445,344 bytes, 94% of
 // them its fc weights wf (7.9 MB), for 32.1 MFLOP: 0.32 ms for B = 128 at
 // 3.35 TB/s, against 0.03 ms for the operations even at the float32 rate.
@@ -105,6 +118,7 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
+template <bool kRoundX3>
 __global__ void __launch_bounds__(kThreads, 1)
     large_dqn_fused_kernel(const bf16* __restrict__ patches1, const bf16* __restrict__ w1,
                            const float* __restrict__ b1, const bf16* __restrict__ w2,
@@ -205,6 +219,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = kItemW3; i < kItemF; ++i) ring.release(i, lane);
   }
   consumers_sync();
+  if constexpr (kRoundX3) {  // fc_mode 'mxu_t': the fc's operand x3 in bf16
+    for (int i = tid; i < kC3 * kP2; i += kConsumers) x3[i] = __bfloat162float(__float2bfloat16_rn(x3[i]));
+    consumers_sync();
+  }
 
   // fc: h[n] = Σ_r x3[r] · wf[r, n] over wf's rows r = c·121 + p in order;
   // thread t sums columns 8·(t % 64)..+7 of the rows of group t / 64
@@ -264,6 +282,25 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <bool kRoundX3>
+int launch(const void* patches1, const void* w1, const void* b1, const void* w2, const void* b2, const void* w3,
+           const void* b3, const void* wf, const void* bf, const void* wo, const void* bo, void* out, int B,
+           void* stream) {
+  if (B <= 0) return 0;
+  if (!aligned16(patches1) || !aligned16(w1) || !aligned16(w2) || !aligned16(w3) || !aligned16(wf) ||
+      !aligned16(wo))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = nevo_ring::allow_smem(large_dqn_fused_kernel<kRoundX3>, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  large_dqn_fused_kernel<kRoundX3><<<B, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(patches1), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+      static_cast<const bf16*>(w3), static_cast<const float*>(b3), static_cast<const bf16*>(wf),
+      static_cast<const float*>(bf), static_cast<const float*>(wo), static_cast<const float*>(bo),
+      static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Pointers as `fuse_prepare` lays them out (see the top of this file);
@@ -274,17 +311,13 @@ extern "C" int nevo_large_dqn_fused(const void* patches1, const void* w1, const 
                                     const void* w2, const void* b2, const void* w3, const void* b3,
                                     const void* wf, const void* bf, const void* wo, const void* bo,
                                     void* out, int B, void* stream) {
-  if (B <= 0) return 0;
-  if (!aligned16(patches1) || !aligned16(w1) || !aligned16(w2) || !aligned16(w3) || !aligned16(wf) ||
-      !aligned16(wo))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = nevo_ring::allow_smem(large_dqn_fused_kernel, kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  large_dqn_fused_kernel<<<B, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(patches1), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-      static_cast<const bf16*>(w3), static_cast<const float*>(b3), static_cast<const bf16*>(wf),
-      static_cast<const float*>(bf), static_cast<const float*>(wo), static_cast<const float*>(bo),
-      static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return launch<false>(patches1, w1, b1, w2, b2, w3, b3, wf, bf, wo, bo, out, B, stream);
+}
+
+// The same with x3 rounded to bf16 before the fc (fc_mode 'mxu_t').
+extern "C" int nevo_large_dqn_fused_mxu_t(const void* patches1, const void* w1, const void* b1,
+                                          const void* w2, const void* b2, const void* w3, const void* b3,
+                                          const void* wf, const void* bf, const void* wo, const void* bo,
+                                          void* out, int B, void* stream) {
+  return launch<true>(patches1, w1, b1, w2, b2, w3, b3, wf, bf, wo, bo, out, B, stream);
 }

@@ -120,8 +120,13 @@ def load() -> ctypes.CDLL:
     lib.nevo_noise_gradient_geometry.restype = None
     lib.nevo_l2_read_probe.argtypes = [vp, i64, i32, i32, vp, vp]
     lib.nevo_l2_read_probe.restype = i32
-    lib.nevo_large_dqn_fused.argtypes = [vp] * 12 + [i32, vp]
-    lib.nevo_large_dqn_fused.restype = i32
+    for name in ("nevo_large_dqn_fused", "nevo_large_dqn_fused_mxu_t"):
+        getattr(lib, name).argtypes = [vp] * 12 + [i32, vp]
+        getattr(lib, name).restype = i32
+    lib.nevo_fc_whole.argtypes = [vp] * 3 + [i32] * 4 + [vp]
+    lib.nevo_fc_whole.restype = i32
+    lib.nevo_fc_ktiled.argtypes = [vp] * 3 + [i32] * 5 + [vp]
+    lib.nevo_fc_ktiled.restype = i32
     lib.nevo_dqn_conv_chain.argtypes = [vp] * 8 + [i32, i32, i32, i32, i32, vp]
     lib.nevo_dqn_conv_chain.restype = i32
     for name in ("nevo_vbn_dqn_fused1", "nevo_vbn_dqn_fused"):

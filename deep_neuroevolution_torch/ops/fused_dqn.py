@@ -6,7 +6,8 @@ The counterpart of the JAX package's ops/pallas_fused_dqn.py:
   + out, one member per CUDA block (csrc/large_dqn_fused.cu: the convs on
   tensor cores, every byte streamed through a ring of bulk copies), on the
   layout that ``LargeDQN.fuse_prepare`` builds → padded scores ``[B, 64]``
-  f32;
+  f32, in the JAX kernel's ``fc_mode`` 'fma' (the default) or 'mxu_t' and
+  ``conv_mode`` 'scratch' (the default) or 'ksplit';
 * ``vbn_dqn_fused1_scores`` (K4) and ``vbn_dqn_fused_scores`` (K6): the
   whole VBN small DQN forward, each normalization folded into a scale a and
   shift c (csrc/vbn_dqn_fused.cu: convs on tensor cores, every byte
@@ -24,9 +25,10 @@ Each wrapper launches its kernel on a CUDA tensor, runs its plain PyTorch
 version (``*_plain``) on a CPU tensor and raises on any other device. The
 plain versions keep the JAX kernels' rounding points: the operand of every
 conv product after the first is rounded to the weight dtype, x3 stays f32
-in K3's fc and x2 in K4's, K6 rounds x2 to bf16 before its fc, and the out
-layers are f32. Sums are f32. K4 and K6 compute h·a + c as a rounded
-product and a rounded sum, in the kernel as here.
+in K3's fc ('mxu_t' rounds it to bf16) and x2 in K4's, K6 rounds x2 to
+bf16 before its fc, and the out layers are f32. Sums are f32. K4 and K6
+compute h·a + c as a rounded product and a rounded sum, in the kernel as
+here.
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ KK2 = 256  # conv2 patch length 4·4·16 of the VBN-DQN
 C1, C2, FC = 16, 32, 256  # VBN-DQN widths
 LG_C1, LG_C2, LG_C3, LG_FC = 32, 64, 64, 512  # LargeDQN widths
 NOUT = 64  # padded action lanes
+# K3's modes, as the JAX kernel's (pallas_fused_dqn.py:297-300); the first of each is the default
+FC_MODES = ("fma", "mxu_t")
+CONV_MODES = ("scratch", "ksplit")
 
 LARGE_OPS = ("patches1", "w1", "b1", "w2", "b2", "w3", "b3", "wf", "bf", "wo", "bo")
 # K4's operands in the C function's order; K6 takes "wf" in place of "wf_cm"
@@ -95,28 +100,55 @@ def vbn_plan(B: int, sm_count: int) -> VbnPlan:
     return VbnPlan(B, sm_count, 1, -(-B // per))
 
 
-def _conv(x: torch.Tensor, hw: int, k: int, s: int, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _conv(x: torch.Tensor, hw: int, k: int, s: int, w: torch.Tensor, b: torch.Tensor,
+          ksplit: bool = False) -> torch.Tensor:
     """relu(im2col(x) · w + b) for x ``[B, hw·hw, C]`` f32 (already rounded
-    to w's dtype), SAME padding, (i, j, c) patch order."""
+    to w's dtype), SAME padding, (i, j, c) patch order. ``ksplit``: each of
+    the k·k taps' products ``[B, P, C]·[B, C, O]`` apart, summed in tap
+    order (K3's conv_mode 'ksplit')."""
     B, _, c = x.shape
     p = extract_patches(x.reshape(B, hw, hw, c), k, s)
     p = p.reshape(B, p.shape[1] * p.shape[2], -1)
-    return torch.relu(torch.bmm(p, w.float()) + b.float())
+    w = w.float()
+    if not ksplit:
+        return torch.relu(torch.bmm(p, w) + b.float())
+    h = torch.bmm(p[:, :, :c], w[:, :c])
+    for t in range(1, k * k):
+        h = h + torch.bmm(p[:, :, t * c:(t + 1) * c], w[:, t * c:(t + 1) * c])
+    return torch.relu(h + b.float())
 
 
-def dqn_conv_chain_plain(patches1, w1m, b1, w2m, b2, w3m=None, b3=None) -> torch.Tensor:
+def dqn_conv_chain_plain(patches1, w1m, b1, w2m, b2, w3m=None, b3=None, ksplit: bool = False) -> torch.Tensor:
+    """K5's plain version; ``ksplit`` sums conv2's and conv3's taps one at a
+    time (K3's conv_mode 'ksplit')."""
     x = torch.relu(torch.bmm(patches1.float(), w1m.float()) + b1.float())  # [B, 441, c1]
-    x = _conv(x.to(w2m.dtype).float(), H1, 4, 2, w2m, b2)  # [B, 121, c2]
+    x = _conv(x.to(w2m.dtype).float(), H1, 4, 2, w2m, b2, ksplit)  # [B, 121, c2]
     if w3m is not None:
-        x = _conv(x.to(w3m.dtype).float(), H2, 3, 1, w3m, b3)  # [B, 121, c3]
+        x = _conv(x.to(w3m.dtype).float(), H2, 3, 1, w3m, b3, ksplit)  # [B, 121, c3]
     return x
 
 
-def large_dqn_fused_scores_plain(ops: Dict[str, torch.Tensor]) -> torch.Tensor:
-    x3 = dqn_conv_chain_plain(ops["patches1"], ops["w1"], ops["b1"], ops["w2"], ops["b2"], ops["w3"], ops["b3"])
-    # fc[n] = Σ_p Σ_c x3[p, c]·wf[c, p, n]: x3 f32, wf widened from bf16
-    h = torch.einsum("bpc,bcpn->bn", x3, ops["wf"].float()) + ops["bf"][:, 0]
-    x4 = torch.relu(h)
+def _check_modes(fc_mode: str, conv_mode: str) -> None:
+    _require(fc_mode in FC_MODES, f"fc_mode must be one of {FC_MODES}, not {fc_mode!r}")
+    _require(conv_mode in CONV_MODES, f"conv_mode must be one of {CONV_MODES}, not {conv_mode!r}")
+
+
+def large_dqn_fused_scores_plain(ops: Dict[str, torch.Tensor], fc_mode: str = "fma",
+                                 conv_mode: str = "scratch") -> torch.Tensor:
+    _check_modes(fc_mode, conv_mode)
+    x3 = dqn_conv_chain_plain(ops["patches1"], ops["w1"], ops["b1"], ops["w2"], ops["b2"], ops["w3"], ops["b3"],
+                              ksplit=conv_mode == "ksplit")
+    wf = ops["wf"].float()
+    if fc_mode == "fma":
+        # fc[n] = Σ_p Σ_c x3[p, c]·wf[c, p, n]: x3 f32, wf widened from bf16
+        h = torch.einsum("bpc,bcpn->bn", x3, wf)
+    else:
+        # 'mxu_t': x3 rounded to bf16, then fc[n] = Σ_c (Σ_p x3[p, c]·wf[c, p, n]), channel by channel
+        per_channel = torch.einsum("bpc,bcpn->bcn", x3.to(torch.bfloat16).float(), wf)
+        h = per_channel[:, 0]
+        for c in range(1, LG_C3):
+            h = h + per_channel[:, c]
+    x4 = torch.relu(h + ops["bf"][:, 0])
     return torch.bmm(x4[:, None, :], ops["wo"])[:, 0] + ops["bo"][:, 0]
 
 
@@ -246,29 +278,39 @@ vbn_dqn_fused_scores.launches = 0  # kernel launches since the caller last set i
 vbn_dqn_fused_scores.launches_by_batch = {}
 
 
-def large_dqn_fused_scores(ops: Dict[str, torch.Tensor]) -> torch.Tensor:
+def large_dqn_fused_scores(ops: Dict[str, torch.Tensor], fc_mode: str = "fma",
+                           conv_mode: str = "scratch") -> torch.Tensor:
     """``ops``: the ``fuse_prepare`` layout plus ``patches1`` → padded scores
-    ``[B, 64]`` f32 (lanes past num_actions carry the −1e9 bias)."""
+    ``[B, 64]`` f32 (lanes past num_actions carry the −1e9 bias).
+    ``fc_mode='mxu_t'`` launches the kernel's variant that rounds x3 to bf16
+    before the fc; ``conv_mode='ksplit'`` launches the 'scratch' code, whose
+    tensor-core sums differ from a tap-by-tap order only in the order of
+    float32 sums (csrc/large_dqn_fused.cu)."""
+    _check_modes(fc_mode, conv_mode)
     B = _check_large(ops)
     dev = _check_common({k: ops[k] for k in LARGE_OPS}, ("patches1", "w1", "w2", "w3", "wf"))
     if dev.type == "cpu":
-        return large_dqn_fused_scores_plain(ops)
+        return large_dqn_fused_scores_plain(ops, fc_mode, conv_mode)
     out = torch.empty((B, NOUT), dtype=torch.float32, device=dev)
     if B == 0:
         return out
     lib = _cuda_build.load()
-    err = lib.nevo_large_dqn_fused(*(ops[k].data_ptr() for k in LARGE_OPS), out.data_ptr(), B,
-                                   _cuda_build.current_stream(dev))
+    launch = lib.nevo_large_dqn_fused_mxu_t if fc_mode == "mxu_t" else lib.nevo_large_dqn_fused
+    err = launch(*(ops[k].data_ptr() for k in LARGE_OPS), out.data_ptr(), B, _cuda_build.current_stream(dev))
     _cuda_build.check(lib, err, "large_dqn_fused_scores")
-    large_dqn_fused_scores.launches += 1
-    by_batch = large_dqn_fused_scores.launches_by_batch
-    by_batch[B] = by_batch.get(B, 0) + 1
+    fn = large_dqn_fused_scores
+    fn.launches += 1
+    fn.launches_by_batch[B] = fn.launches_by_batch.get(B, 0) + 1
+    mode = f"{fc_mode}/{conv_mode}"
+    fn.launches_by_mode[mode] = fn.launches_by_mode.get(mode, 0) + 1
     return out
 
 
 large_dqn_fused_scores.launches = 0  # kernel launches since the caller last set it to 0
-# the same launches by batch size B; a caller that zeroes .launches clears it too
+# the same launches by batch size B and by "fc_mode/conv_mode"; a caller
+# that zeroes .launches clears them too
 large_dqn_fused_scores.launches_by_batch = {}
+large_dqn_fused_scores.launches_by_mode = {}
 
 
 def dqn_conv_chain_fused(patches1, w1m, b1, w2m, b2, w3m=None, b3=None) -> torch.Tensor:

@@ -1,0 +1,376 @@
+"""LargeDQN forward-path variant race of the PyTorch port on the card.
+
+The port's counterpart of scripts/exp_large_fwd.py: the same variants of
+the GA-Atari LargeDQN's population forward at B members, timed by the same
+marginal method, under the same keys of ``results_ms``:
+
+* the fc, the [B, 7744]·[B, 7744, 512] bf16 mat-vec → f32:
+  ``fc_kt1024``, ``fc_kt2048``, ``fc_kt2048_par`` and ``fc_kt3872`` run
+  kernel K7 (``fc_ktiled``, csrc/fc_ktiled.cu) with that tile of K rows
+  (``_par`` and the 3872 tile's VMEM limit are TPU compile options with no
+  counterpart here, so ``fc_kt2048_par`` is K7 at 2048 again); ``fc_whole``
+  runs kernel K8 (csrc/fc_whole.cu); ``fc_xla`` is one ``torch.bmm``, the
+  counterpart of the einsum that XLA computed outside any Pallas kernel (its
+  output is bf16, widened to f32);
+* the conv stack: ``conv_nhwc`` (the port's ``batch_conv2d`` per layer),
+  ``conv_cf`` (channels-first im2col products), ``conv_fused`` (the
+  frames' im2col, then kernel K5, as ``LargeDQN(conv_impl='fused')`` runs
+  it) and ``conv_fused_kernel`` (K5 alone on precomputed patches);
+* the whole net, kernel K3, in the JAX kernel's mode pairs: ``fused_fma``
+  ('fma', 'ksplit'), ``fused_mxut`` ('mxu_t', 'ksplit') and
+  ``fused_scratch`` ('fma', 'scratch');
+* ``conv_equiv_maxdiff``: max |conv_nhwc − conv_cf| on the same frames.
+
+Each step perturbs its input as the JAX script does (``tanh(x + t)``,
+``obs + 1e-6·t``, ``patches·(1 + 1e-6·t)``), so no step repeats another's
+work. On a card, K = 2 and K = 10 steps are captured in two CUDA graphs and
+each graph's replay is timed with CUDA events; one step's time is
+(T₁₀ − T₂) / 8, with each T the least over REPS replays. With
+``--device cpu`` the steps run eagerly on the host clock (the plain
+versions of the kernels; a check of the control flow, not a measurement).
+A failing variant raises.
+
+Output: ``--out`` (default results/exp_large_fwd_torch.json) holds ``B``,
+``results_ms`` and ``device`` (the card and the host,
+``utils/machine.py``); the same JSON goes to stdout.
+
+Usage: python scripts/exp_large_fwd_torch.py [--only NAME[,NAME...]] [--B 256]
+       [--device cpu] [--out PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from deep_neuroevolution_torch.device import resolve_device  # noqa: E402
+from deep_neuroevolution_torch.models import LargeDQN  # noqa: E402
+from deep_neuroevolution_torch.models.core import _same_pads, batch_conv2d, extract_patches  # noqa: E402
+from deep_neuroevolution_torch.ops import _cuda_build  # noqa: E402
+from deep_neuroevolution_torch.ops import fused_dqn as fk  # noqa: E402
+from deep_neuroevolution_torch.utils import machine  # noqa: E402
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+FC_K, FC_N = 7744, 512  # the LargeDQN's fc: 11·11·64 → 512
+REPS = 5  # timed replays of each graph (runs on the host clock); the least counts
+# K3's mode pairs (fc_mode, conv_mode), as exp_large_fwd.py:277-280
+FUSED_MODES = {"fused_fma": ("fma", "ksplit"), "fused_mxut": ("mxu_t", "ksplit"), "fused_scratch": ("fma", "scratch")}
+
+
+# ---------------------------------------------------------------- fc variants
+
+def _check_fc(x: torch.Tensor, W: torch.Tensor) -> torch.device:
+    """x ``[B, K]`` and W ``[B, K, N]``, one dtype (float32 or bfloat16),
+    one device, contiguous; returns the device."""
+    if x.dim() != 2 or W.dim() != 3 or tuple(W.shape[:2]) != tuple(x.shape):
+        raise ValueError(f"x [B, K] and W [B, K, N] expected, got {tuple(x.shape)} and {tuple(W.shape)}")
+    if x.dtype not in _DTYPE_CODE or W.dtype != x.dtype:
+        raise TypeError(f"x and W must share float32 or bfloat16, got {x.dtype} and {W.dtype}")
+    if x.device != W.device:
+        raise ValueError(f"x on {x.device}, W on {W.device}")
+    if not (x.is_contiguous() and W.is_contiguous()):
+        raise ValueError("x and W must be contiguous")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the fc kernels run on cuda or cpu tensors, not {x.device}")
+    return x.device
+
+
+def fc_ktiled_plain(x: torch.Tensor, W: torch.Tensor, kt: int) -> torch.Tensor:
+    """K7's plain version: each tile of ``kt`` rows one f32 ``torch.bmm``,
+    added into y in tile order."""
+    B, K = x.shape
+    y = torch.zeros((B, W.shape[2]), dtype=torch.float32, device=x.device)
+    for k0 in range(0, K, kt):
+        y = y + torch.bmm(x[:, None, k0:k0 + kt].float(), W[:, k0:k0 + kt].float())[:, 0]
+    return y
+
+
+def fc_ktiled(x: torch.Tensor, W: torch.Tensor, kt: int) -> torch.Tensor:
+    """K7: y[b] = x[b]·W[b] ``[B, K]·[B, K, N]`` → ``[B, N]`` f32, K in
+    tiles of ``kt`` rows whose f32 partials are added into y in tile order
+    (csrc/fc_ktiled.cu). The plain version on a CPU tensor."""
+    dev = _check_fc(x, W)
+    if kt < 1:
+        raise ValueError(f"kt must be at least 1, not {kt}")
+    if dev.type == "cpu":
+        return fc_ktiled_plain(x, W, kt)
+    B, K = x.shape
+    N = W.shape[2]
+    if K == 0:
+        return torch.zeros((B, N), dtype=torch.float32, device=dev)
+    y = torch.empty((B, N), dtype=torch.float32, device=dev)
+    if B == 0 or N == 0:
+        return y
+    lib = _cuda_build.load()
+    err = lib.nevo_fc_ktiled(x.data_ptr(), W.data_ptr(), y.data_ptr(), B, K, N, kt, _DTYPE_CODE[x.dtype],
+                             _cuda_build.current_stream(dev))
+    _cuda_build.check(lib, err, "fc_ktiled")
+    fc_ktiled.launches += 1
+    fc_ktiled.launches_by_kt[kt] = fc_ktiled.launches_by_kt.get(kt, 0) + 1
+    return y
+
+
+fc_ktiled.launches = 0  # kernel launches since the caller last set it to 0
+# the same launches by tile size kt; a caller that zeroes .launches clears it too
+fc_ktiled.launches_by_kt = {}
+
+
+def fc_whole_plain(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """K8's plain version: one f32 ``torch.bmm``."""
+    return torch.bmm(x[:, None, :].float(), W.float())[:, 0]
+
+
+def fc_whole(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """K8: y[b] = x[b]·W[b] ``[B, K]·[B, K, N]`` → ``[B, N]`` f32, each
+    member's whole K in one block (csrc/fc_whole.cu). The plain version on a
+    CPU tensor."""
+    dev = _check_fc(x, W)
+    if dev.type == "cpu":
+        return fc_whole_plain(x, W)
+    B, K = x.shape
+    N = W.shape[2]
+    y = torch.empty((B, N), dtype=torch.float32, device=dev)
+    if B == 0 or N == 0:
+        return y
+    lib = _cuda_build.load()
+    err = lib.nevo_fc_whole(x.data_ptr(), W.data_ptr(), y.data_ptr(), B, K, N, _DTYPE_CODE[x.dtype],
+                            _cuda_build.current_stream(dev))
+    _cuda_build.check(lib, err, "fc_whole")
+    fc_whole.launches += 1
+    return y
+
+
+fc_whole.launches = 0  # kernel launches since the caller last set it to 0
+
+
+def fc_bmm(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``fc_xla``'s counterpart: one ``torch.bmm`` in the operands' dtype,
+    widened to f32."""
+    return torch.bmm(x[:, None, :], W)[:, 0].float()
+
+
+# -------------------------------------------------------------- conv variants
+
+CONV_LAYERS = (("conv1/w", 4), ("conv2/w", 2), ("conv3/w", 1))
+
+
+def conv_chain_nhwc(parts, x: torch.Tensor) -> torch.Tensor:
+    """The conv stack on NHWC frames, a batched product over im2col patches
+    per layer (``batch_conv2d``), each output relu'd and rounded to bf16;
+    no biases, as in the JAX script."""
+    h = x
+    for nm, s in CONV_LAYERS:
+        h = torch.relu(batch_conv2d(parts[nm], h, stride=s)).to(torch.bfloat16)
+    return h
+
+
+def _extract_patches_cf(x: torch.Tensor, k: int, stride: int, padding: str = "SAME"):
+    """NCHW im2col: ``[B, C, H, W]`` → ``[B, k·k·C, P]`` with K order (i, j,
+    c), matching an HWIO weight reshaped ``[k·k·C, O]``; and H', W'."""
+    b, c, h, w = x.shape
+    if padding == "SAME":
+        (pt, pb), (pl, pr) = _same_pads(h, k, stride), _same_pads(w, k, stride)
+        x = F.pad(x, (pl, pr, pt, pb))
+        h, w = h + pt + pb, w + pl + pr
+    h2 = (h - k) // stride + 1
+    w2 = (w - k) // stride + 1
+    slices = [
+        x[:, :, i:i + (h2 - 1) * stride + 1:stride, j:j + (w2 - 1) * stride + 1:stride]
+        for i in range(k)
+        for j in range(k)
+    ]
+    pat = torch.stack(slices, dim=1)  # [B, k·k, C, H', W']
+    return pat.reshape(b, k * k * c, h2 * w2), h2, w2
+
+
+def batch_conv2d_cf(w: torch.Tensor, x_cf: torch.Tensor, stride: int, bias=None) -> torch.Tensor:
+    """Channels-first population conv: ``[B, O, K]·[B, K, P]`` with the
+    spatial extent as the product's columns. Products of bf16 inputs summed
+    in f32; the result is f32 ``[B, O, H', W']``."""
+    B, kh, kw, cin, cout = w.shape
+    pat, h2, w2 = _extract_patches_cf(x_cf, kh, stride)
+    wmat = w.reshape(B, kh * kw * cin, cout).to(pat.dtype)
+    y = torch.bmm(wmat.float().transpose(1, 2), pat.float())
+    if bias is not None:
+        y = y + bias[:, :, None].float()
+    return y.reshape(B, cout, h2, w2)
+
+
+def conv_chain_cf(parts, x: torch.Tensor) -> torch.Tensor:
+    """``conv_chain_nhwc`` channels-first: NHWC → NCHW once, back at the end."""
+    h = x.permute(0, 3, 1, 2)
+    for nm, s in CONV_LAYERS:
+        h = torch.relu(batch_conv2d_cf(parts[nm], h, stride=s)).to(torch.bfloat16)
+    return h.permute(0, 2, 3, 1)
+
+
+# ------------------------------------------------------------------- timing
+
+def _steps(step, K: int, device: torch.device) -> torch.Tensor:
+    acc = torch.zeros((), dtype=torch.float32, device=device)
+    for t in range(K):
+        acc = acc + step(t)
+    return acc
+
+
+def _graph_ms(step, K: int, reps: int, device: torch.device) -> float:
+    """K steps captured in one CUDA graph: the least of ``reps`` replays'
+    milliseconds by CUDA events."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):  # warm up outside the capture, as torch.cuda.graph asks
+        _steps(step, K, device)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _steps(step, K, device)
+    graph.replay()
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize(device)
+        times.append(start.elapsed_time(end))
+    del graph
+    return min(times)
+
+
+def _host_ms(step, K: int, reps: int, device: torch.device) -> float:
+    _steps(step, K, device)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        float(_steps(step, K, device))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times)
+
+
+def marginal(step, device: torch.device, ks=(2, 10), reps: int = REPS) -> float:
+    """Milliseconds of one ``step(t)`` (t = 0, 1, ...; each returns a
+    scalar) by the marginal method: (T_{ks[1]} − T_{ks[0]}) / (ks[1] −
+    ks[0]), so fixed costs cancel."""
+    timer = _graph_ms if device.type == "cuda" else _host_ms
+    ts = [timer(step, K, reps, device) for K in ks]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return (ts[1] - ts[0]) / (ks[1] - ks[0])
+
+
+# --------------------------------------------------------------------- main
+
+def make_operands(B: int, device: torch.device, seed: int = 0) -> dict:
+    """The race's operands from one seed: the fc's x ``[B, 7744]`` and W
+    ``[B, 7744, 512]`` (N(0, 1) in bf16); B LargeDQNs (18 actions) at their
+    initial θ (normc columns, zero biases) in bf16 on the split route's
+    parts; frames ``[B, 84, 84, 4]`` uniform in [0, 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, FC_K), generator=gen, device=device).to(torch.bfloat16)
+    W = torch.empty((B, FC_K, FC_N), dtype=torch.bfloat16, device=device)
+    for b in range(B):  # member by member: no f32 copy of the whole W
+        W[b] = torch.randn((FC_K, FC_N), generator=gen, device=device)
+    model = LargeDQN(num_actions=18, compute_dtype="bfloat16", forward_impl="split", conv_impl="einsum")
+    thetas = model.reinit_theta(torch.randn((B, model.num_params), generator=gen, device=device))
+    parts, _ = model.prepare_batch_params((thetas, None))
+    del thetas
+    obs = torch.rand((B, 84, 84, 4), generator=gen, device=device)
+    return dict(x=x, W=W, parts=parts, obs=obs)
+
+
+def fc_variants():
+    """``results_ms`` key → fc(x, W)."""
+    return {
+        "fc_kt2048": lambda x, W: fc_ktiled(x, W, 2048),
+        "fc_kt2048_par": lambda x, W: fc_ktiled(x, W, 2048),
+        "fc_kt3872": lambda x, W: fc_ktiled(x, W, 3872),
+        "fc_kt1024": lambda x, W: fc_ktiled(x, W, 1024),
+        "fc_whole": fc_whole,
+        "fc_xla": fc_bmm,
+    }
+
+
+def run(B: int, only, device) -> dict:
+    """The race at B members on ``device``; returns ``results_ms`` (key →
+    ms, and ``conv_equiv_maxdiff``). ``only``: comma-separated keys."""
+    device = resolve_device(device)
+    names = None if only is None else set(only.split(","))
+
+    def want(name):
+        return names is None or name in names
+
+    ops = make_operands(B, device)
+    out = {}
+    for name, fn in fc_variants().items():
+        if want(name):
+            x, W = ops["x"], ops["W"]
+            out[name] = marginal(lambda t, _fn=fn: _fn(torch.tanh(x + t), W).sum(), device)
+
+    parts, obs = ops["parts"], ops["obs"]
+    for name, fn in (("conv_nhwc", conv_chain_nhwc), ("conv_cf", conv_chain_cf)):
+        if want(name):
+            out[name] = marginal(lambda t, _fn=fn: _fn(parts, (obs + 1e-6 * t).to(torch.bfloat16)).float().sum(), device)
+
+    mfused = LargeDQN(num_actions=18, compute_dtype="bfloat16", conv_impl="fused")
+    if want("conv_fused"):  # frames → im2col → K5, the route in place
+        out["conv_fused"] = marginal(
+            lambda t: fk.dqn_conv_chain_fused(*mfused.conv_chain_args(parts, obs + 1e-6 * t)).sum(), device)
+    if want("conv_fused_kernel"):  # K5 alone on precomputed patches
+        patches, *wb = mfused.conv_chain_args(parts, obs)
+        out["conv_fused_kernel"] = marginal(
+            lambda t: fk.dqn_conv_chain_fused(patches * (1 + 1e-6 * t), *wb).sum(), device)
+
+    modes = [m for m in FUSED_MODES if want(m)]
+    if modes:
+        fops = mfused.fuse_prepare(parts)
+        fops["patches1"] = extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, fk.P1, fk.KK1)
+        for name in modes:
+            fc_mode, conv_mode = FUSED_MODES[name]
+
+            def fstep(t, _f=fc_mode, _c=conv_mode):
+                o = dict(fops, patches1=fops["patches1"] * (1 + 1e-6 * t))
+                return fk.large_dqn_fused_scores(o, fc_mode=_f, conv_mode=_c).sum()
+
+            out[name] = marginal(fstep, device)
+        del fops
+
+    if want("conv_equiv"):  # the two conv routes on the same frames
+        xb = obs.to(torch.bfloat16)
+        a, b = conv_chain_nhwc(parts, xb), conv_chain_cf(parts, xb)
+        out["conv_equiv_maxdiff"] = float((a.float() - b.float()).abs().max())
+        print(f"  [conv nhwc vs cf max abs diff: {out['conv_equiv_maxdiff']:.2e}]", file=sys.stderr, flush=True)
+
+    for k, v in out.items():
+        if k != "conv_equiv_maxdiff":
+            print(f"{k:18s} {v:8.4f} ms  {v / B * 1e3:7.3f} us/member", file=sys.stderr, flush=True)
+    return out
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser()
+    p.add_argument("--B", type=int, default=256)
+    p.add_argument("--only", default=None, help="comma-separated keys of results_ms ('conv_equiv' for the check)")
+    p.add_argument("--out", default="results/exp_large_fwd_torch.json")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    results = run(args.B, args.only, device)
+    art = {"B": args.B, "results_ms": results, "device": machine.describe(device)}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(art, f, indent=1)
+    print(json.dumps(art), flush=True)
+    return art
+
+
+if __name__ == "__main__":
+    main()

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import MIDPOINT, recording_theta_override, vbn_all_ties_case, vbn_random_ops
+from chip_smoke import MIDPOINT, campaign_script, recording_theta_override, vbn_all_ties_case, vbn_random_ops
 from chip_smoke import sequential as _sequential
 from deep_neuroevolution_torch.algos import es
 from deep_neuroevolution_torch.algos import ga
@@ -26,6 +26,8 @@ from deep_neuroevolution_torch.ops.population_linear import population_linear, p
 from deep_neuroevolution_torch.utils import tabular
 
 pytestmark = pytest.mark.cuda
+
+exp_large_fwd = campaign_script("exp_large_fwd_torch")  # K7's and K8's wrappers, K3's race modes
 
 
 @pytest.fixture
@@ -478,6 +480,117 @@ def test_fused_wrappers_reject_misaligned_inputs(cuda_device):
     buf = torch.zeros(ops["wf"].numel() + 1, dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="aligned"):
         fk.large_dqn_fused_scores(dict(ops, wf=buf[1:].view(ops["wf"].shape)))
+
+
+K3_MODES = sorted(set(exp_large_fwd.FUSED_MODES.values()))  # ('fma', 'ksplit'), ('fma', 'scratch'), ('mxu_t', 'ksplit')
+
+
+@pytest.mark.parametrize("modes", [m for m in K3_MODES if m != ("fma", "scratch")])
+@pytest.mark.parametrize("seed", range(100, 106))
+def test_large_dqn_fused_modes_over_seeds(cuda_device, seed, modes):
+    """K3's other modes against their plain versions at B = 64, 18 actions,
+    genomes and frames drawn on the card: within 1e-3·max|score|, as the
+    default pair. 'mxu_t' runs the kernel's variant that rounds x3 to bf16
+    (its own entry of ``launches_by_mode`` moves), where the card's x3 and
+    the plain version's can round apart at a midpoint; 'mxu_t' must also
+    lie nearer its plain version than that lies from the plain 'fma': on
+    average over the scores, within a quarter of that distance (a kernel
+    that dropped or moved the rounding reads about 1). 'ksplit' runs the
+    'scratch' code, which differs from the tap-by-tap sums only in their
+    order. A second launch repeats the first bit for bit."""
+    B, na = 64, 18
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    model = LargeDQN(num_actions=na, forward_impl="fused")
+    th = torch.randn((B, model.num_params), generator=gen, device=cuda_device) * model.scale_by(
+        model.scale_style, cuda_device)
+    parts, _ = model.prepare_batch_params((th, None))
+    obs = torch.rand((B, 84, 84, 4), generator=gen, device=cuda_device)
+    ops = dict(parts["__fused_lg__"], patches1=extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+    by_mode = fk.large_dqn_fused_scores.launches_by_mode
+    mode = "/".join(modes)
+    before = by_mode.get(mode, 0)
+    y = fk.large_dqn_fused_scores(ops, *modes)
+    ref = fk.large_dqn_fused_scores_plain(ops, *modes)
+    again = fk.large_dqn_fused_scores(ops, *modes)
+    torch.cuda.synchronize()
+    assert by_mode[mode] == before + 2
+    tol = 1e-3 * float(ref[:, :na].abs().max())
+    err = float((y[:, :na] - ref[:, :na]).abs().max())
+    print(f"K3 {mode} B={B} seed {seed}: max abs err {err} ({err / tol * 1e-3:.3g}·max)")
+    torch.testing.assert_close(y[:, :na], ref[:, :na], rtol=0, atol=tol)
+    assert torch.equal(y, again)
+    if modes[0] == "mxu_t":
+        fma = fk.large_dqn_fused_scores_plain(ops, "fma", modes[1])[:, :na]
+        sep = float((y[:, :na] - ref[:, :na]).abs().mean() / (fma - ref[:, :na]).abs().mean())
+        print(f"K3 {mode} B={B} seed {seed}: mean |card − plain| / mean |plain fma − plain| {sep:.3g}")
+        assert sep < 0.25
+
+
+@pytest.mark.parametrize("modes", K3_MODES)
+def test_large_dqn_fused_modes_on_engine_frames(cuda_device, modes):
+    """K3 in each of scripts/exp_large_fwd_torch.py's mode pairs on ToyCatch
+    engine frames (mostly blank, so patches and their near ties repeat) and
+    GA children (first-generation genomes plus one 0.002 mutation), B = 128,
+    4 actions: within 1e-3·max|score| of the plain version, equal argmax
+    away from near ties."""
+    B, na = 128, 4
+    env = AtariEnv("toy", batch_size=16, num_threads=2)
+    try:
+        frames = collect_ref_batch_host(env, 9, cuda_device, batch_size=B)
+    finally:
+        env.close()
+    model = LargeDQN(num_actions=na, forward_impl="fused")
+    th = _genomes(model, B, 9, cuda_device)
+    th = th + 0.002 * torch.randn(th.shape, generator=torch.Generator().manual_seed(10)).to(cuda_device)
+    parts, _ = model.prepare_batch_params((th, None))
+    ops = dict(parts["__fused_lg__"], patches1=extract_patches(frames.to(torch.bfloat16), 8, 4).reshape(B, 441, 256))
+    y = fk.large_dqn_fused_scores(ops, *modes)[:, :na]
+    ref = fk.large_dqn_fused_scores_plain(ops, *modes)[:, :na]
+    torch.cuda.synchronize()
+    tol = 1e-3 * float(ref.abs().max())
+    err = float((y - ref).abs().max())
+    print(f"K3 {'/'.join(modes)} engine frames B={B}: max abs err {err} ({err / tol * 1e-3:.3g}·max)")
+    torch.testing.assert_close(y, ref, rtol=0, atol=tol)
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    assert torch.equal(y.argmax(-1)[clear], ref.argmax(-1)[clear])
+
+
+# K7 and K8: (B, K, N, dtype, offset). The race's shape at B = 16 in bf16
+# and float32; a tail tile (K = 300) with a partly filled column chunk
+# (N = 200); rows that are not a multiple of 16 bytes (N = 37, one element
+# a load); W off 16-byte alignment (offset = 1)
+FC_CASES = [(16, 7744, 512, torch.bfloat16, 0), (16, 7744, 512, torch.float32, 0), (5, 300, 200, torch.bfloat16, 0),
+            (3, 300, 37, torch.bfloat16, 0), (3, 300, 40, torch.float32, 1)]
+FC_KERNELS = {"whole": None, "kt128": 128, "kt1024": 1024, "kt2048": 2048, "kt3872": 3872}
+
+
+def _fc_call(name):
+    kt = FC_KERNELS[name]
+    if kt is None:
+        return exp_large_fwd.fc_whole, exp_large_fwd.fc_whole, exp_large_fwd.fc_whole_plain
+    return (exp_large_fwd.fc_ktiled, lambda x, W: exp_large_fwd.fc_ktiled(x, W, kt),
+            lambda x, W: exp_large_fwd.fc_ktiled_plain(x, W, kt))
+
+
+@pytest.mark.parametrize("kernel", list(FC_KERNELS))
+@pytest.mark.parametrize("case", FC_CASES)
+def test_fc_kernels_match_plain(cuda_device, case, kernel):
+    """K7 at each tile size and K8 against their plain versions: float32
+    sums in another order, within 1e-5·max|y|; each launch counts once, and
+    a second launch repeats the first bit for bit (no atomics in any sum)."""
+    B, K, N, dtype, offset = case
+    x, W = _k1_inputs(B, K, N, cuda_device, dtype, offset)
+    counted, fn, plain = _fc_call(kernel)
+    before = counted.launches
+    y = fn(x, W)
+    ref = plain(x, W)
+    again = fn(x, W)
+    torch.cuda.synchronize()
+    assert counted.launches == before + 2
+    assert y.dtype == torch.float32 and y.shape == (B, N)
+    torch.testing.assert_close(y, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(y, again)
 
 
 VBN_KERNELS = {"fused1": (fk.vbn_dqn_fused1_scores, fk.vbn_dqn_fused1_scores_plain),
