@@ -251,15 +251,19 @@ ends:
    and K8 (``fc_whole``) against their plain versions at the race's shape
    (B=256, x [256, 7744] and W [256, 7744, 512] bf16) and at one odd shape
    (B=5, K=5000, N=200: a tail tile at every tile size, a partly filled
-   column chunk), each repeated bit for bit and timed back-to-back and in a
-   CUDA graph beside its bound and one ``torch.bmm``, K1 on the race's
-   operands beside them; K3 in the race's mode pairs ('fma'/'scratch',
-   'fma'/'ksplit', 'mxu_t'/'ksplit') against their plain versions at B=256
-   and 18 actions, timed ('mxu_t' also farther than the limit from the
-   plain 'fma' and, on average, within a quarter of the plain versions'
-   distance, so that a kernel without x3's rounding fails); then the script's ``main`` at B=256 once: K7, K8,
-   K3's 'mxu_t' variant and K5 must launch, and ``results_ms`` must hold
-   a number under every key of results/exp_large_fwd_r04.json.
+   column chunk), each on the bulk variant (its plan printed), repeated bit
+   for bit and timed back-to-back and in a CUDA graph beside its bound and
+   one ``torch.bmm`` timed both ways, K1 on the race's operands beside
+   them; K8 and K7 at kt=2048 the same way at B=1, 8, 32 and 128; K3 in the
+   race's mode pairs ('fma'/'scratch', 'fma'/'ksplit', 'mxu_t'/'ksplit')
+   against their plain versions at B=256 and 18 actions, timed ('mxu_t'
+   also farther than the limit from the plain 'fma' and, on average, within
+   a quarter of the plain versions' distance, so that a kernel without x3's
+   rounding fails); then the script's ``main`` at B=256 once: K7 and K8 on
+   the bulk variant, K3's 'mxu_t' variant and K5 must launch, and
+   ``results_ms`` must hold a number under every key of
+   results/exp_large_fwd_r04.json; last, the race's five fc keys timed
+   once more in reverse order (printed beside the artifact's, not in it).
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -3750,10 +3754,15 @@ def run_campaigns(device, l2_rate: float) -> dict:
 # phase 33: the race's fc shape (scripts/exp_large_fwd_torch.py at B=256),
 # K7's tiles there (exp_large_fwd.py:186-193), and an odd shape whose K
 # leaves a tail tile at every one of them and whose N fills part of a
-# column chunk
+# column chunk; the populations of the B sweep at the race's K and N; the
+# race's K7 and K8 keys in its order
 FC_RACE_SHAPE = (256, 7744, 512)
 FC_ODD_SHAPE = (5, 5000, 200)
 FC_TILES = (1024, 2048, 3872)
+FC_SWEEP_B = (1, 8, 32, 128)
+FC_RACE_KEYS = ("fc_kt2048", "fc_kt2048_par", "fc_kt3872", "fc_kt1024", "fc_whole")
+# what phase 33 prints of a K1, K7 or K8 launch plan
+FC_PLAN_FIELDS = ("variant", "reason", "grid", "rows", "tiles", "stages", "smem_bytes", "row_groups")
 
 
 def fc_operands(B: int, K: int, N: int, gen, device):
@@ -3767,12 +3776,14 @@ def fc_operands(B: int, K: int, N: int, gen, device):
     return x, W
 
 
-def check_fc_kernel(name: str, call, plain, x, W, library_ms: float) -> dict:
+def check_fc_kernel(name: str, call, plain, x, W, library_ms: float, plan=None) -> dict:
     """A population mat-vec kernel (K7 at one tile, K8, or K1) on x, W
     against its plain version: float32 sums in another order, within
     1e-5·max|y|; a second launch bit for bit; timed back-to-back and in a
     CUDA graph beside its bound (x, W and y once; 2·B·K·N bf16 operations)
-    and one ``torch.bmm``."""
+    and one ``torch.bmm`` (``library_ms`` back-to-back, timed by the
+    caller; in a graph here, right after the kernel's). ``plan``: the
+    kernel's launch plan, printed with its numbers."""
     import torch
 
     y, ref = call(), plain()
@@ -3784,17 +3795,35 @@ def check_fc_kernel(name: str, call, plain, x, W, library_ms: float) -> dict:
     del y, ref
     warm(call, 0.3)
     ms, gms = cuda_ms(call, 20), graph_ms(call)
+    library_graph_ms = graph_ms(lambda: torch.bmm(x[:, None, :], W))
     plain_ms = cuda_ms(plain, 3, warmup=1)
     (B, K), N = x.shape, W.shape[2]
     bound_ms, bound_by = bound(nbytes(x, W) + B * N * 4, 2 * B * K * N, "bfloat16")
     row = dict(name=name, B=B, K=K, N=N, max_abs_err=err, tol=tol, ms=ms, graph_ms=gms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bound_over_graph_ms=bound_ms / gms)
+               library_ms=library_ms, library_graph_ms=library_graph_ms, graph_over_library_graph=gms / library_graph_ms,
+               bound_ms=bound_ms, bound_by=bound_by, bound_over_graph_ms=bound_ms / gms,
+               plan=None if plan is None else {k: getattr(plan, k) for k in FC_PLAN_FIELDS if hasattr(plan, k)})
     print("fc_race_kernel " + json.dumps(row), flush=True)
     return row
 
 
-def check_fc_shape(mod, B: int, K: int, N: int, gen, device) -> dict:
-    """K7 at each of FC_TILES and K8 on one shape (``mod``: the race
+def check_fc_k78(mod, x, W, kt, library_ms: float) -> dict:
+    """K7 at tile ``kt`` (K8 where kt is None) of the race script ``mod``
+    through ``check_fc_kernel``, required on the bulk variant."""
+    from deep_neuroevolution_torch.ops import fc_matvec
+
+    plan = fc_matvec.plan_for(x, W, kt)
+    name = "fc_whole" if kt is None else f"fc_ktiled kt={kt}"
+    require(plan.variant == "bulk", f"{name} {tuple(W.shape)} takes the general variant: {plan.reason}")
+    if kt is None:
+        return check_fc_kernel(name, lambda: mod.fc_whole(x, W), lambda: mod.fc_whole_plain(x, W), x, W, library_ms,
+                               plan)
+    return check_fc_kernel(name, lambda: mod.fc_ktiled(x, W, kt), lambda: mod.fc_ktiled_plain(x, W, kt), x, W,
+                           library_ms, plan)
+
+
+def check_fc_shape(mod, B: int, K: int, N: int, gen, device, tiles=FC_TILES) -> dict:
+    """K7 at each of ``tiles`` and K8 on one shape (``mod``: the race
     script, whose wrappers they are); at the race's shape also K1 on the
     same operands."""
     import torch
@@ -3804,15 +3833,13 @@ def check_fc_shape(mod, B: int, K: int, N: int, gen, device) -> dict:
     x, W = fc_operands(B, K, N, gen, device)
     library_ms = cuda_ms(lambda: torch.bmm(x[:, None, :], W), 20)
     rows = {}
-    for kt in FC_TILES:
-        rows[f"fc_ktiled kt={kt}"] = check_fc_kernel(
-            f"fc_ktiled kt={kt}", lambda kt=kt: mod.fc_ktiled(x, W, kt), lambda kt=kt: mod.fc_ktiled_plain(x, W, kt),
-            x, W, library_ms)
-    rows["fc_whole"] = check_fc_kernel("fc_whole", lambda: mod.fc_whole(x, W), lambda: mod.fc_whole_plain(x, W), x, W,
-                                       library_ms)
+    for kt in tiles:
+        rows[f"fc_ktiled kt={kt}"] = check_fc_k78(mod, x, W, kt, library_ms)
+    rows["fc_whole"] = check_fc_k78(mod, x, W, None, library_ms)
     if (B, K, N) == FC_RACE_SHAPE:
         rows["population_linear"] = check_fc_kernel("population_linear", lambda: k1.population_linear(x, W),
-                                                    lambda: k1.population_linear_plain(x, W), x, W, library_ms)
+                                                    lambda: k1.population_linear_plain(x, W), x, W, library_ms,
+                                                    k1.plan_for(x, W))
     del x, W
     torch.cuda.empty_cache()
     return rows
@@ -3897,22 +3924,31 @@ def run_fc_race(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(33)
     shapes = {"race": check_fc_shape(mod, *FC_RACE_SHAPE, gen, device),
               "odd": check_fc_shape(mod, *FC_ODD_SHAPE, gen, device)}
+    for B in FC_SWEEP_B:
+        shapes[f"B={B}"] = check_fc_shape(mod, B, *FC_RACE_SHAPE[1:], gen, device, tiles=(2048,))
     k3_modes = check_large_fused_modes(mod, device)
+    k78 = (mod.fc_ktiled, mod.fc_whole)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_race_") as work:
         argv = ["--B", str(FC_RACE_SHAPE[0]), "--out", str(Path(work) / "exp_large_fwd_torch.json"),
                 "--device", str(device)]
         zero_counters()
         mod.fc_ktiled.launches = mod.fc_whole.launches = 0
         mod.fc_ktiled.launches_by_kt.clear()
+        for f in k78:
+            f.launches_by_variant.clear()
         art, seconds = synced_seconds(lambda: mod.main(argv))
         counts = read_counters()
         by_kt = dict(mod.fc_ktiled.launches_by_kt)
+        by_variant = {f.__name__: dict(f.launches_by_variant) for f in k78}
         by_mode = dict(fk.large_dqn_fused_scores.launches_by_mode)
         launches = dict(counts, fc_ktiled=mod.fc_ktiled.launches, fc_whole=mod.fc_whole.launches)
     launches["large_dqn_fused_scores.ksplit"] = by_mode.get("fma/ksplit", 0)
-    print("fc_race launches " + json.dumps(dict(launches, fc_ktiled_by_kt=by_kt, k3_by_mode=by_mode)), flush=True)
+    print("fc_race launches " + json.dumps(dict(launches, fc_ktiled_by_kt=by_kt, fc_by_variant=by_variant,
+                                                k3_by_mode=by_mode)), flush=True)
     require(all(by_kt.get(kt, 0) > 0 for kt in FC_TILES), f"the race did not launch K7 at every tile: {by_kt}")
     require(launches["fc_whole"] > 0, "the race never launched fc_whole")
+    require(all(by_variant[f.__name__] == {"bulk": f.launches} for f in k78),
+            f"the race launched K7 or K8 off the bulk variant: {by_variant}")
     require(launches["large_dqn_fused_scores.mxu_t"] > 0 and launches["large_dqn_fused_scores.ksplit"] > 0
             and by_mode.get("fma/scratch", 0) > 0, f"the race missed a K3 mode: {by_mode}")
     require(launches["dqn_conv_chain_fused"] > 0, "the race never launched K5")
@@ -3923,8 +3959,15 @@ def run_fc_race(device) -> dict:
     require(art["device"]["card"] != "cpu", "the race's artifact names no card")
     print("fc_race " + json.dumps(dict(card=art["device"]["card"], seconds=seconds, B=art["B"], results_ms=ms)),
           flush=True)
-    return dict(shapes=shapes, k3_modes=k3_modes, launches=launches, by_kt=by_kt, by_mode=by_mode, results_ms=ms,
-                seconds=seconds)
+    # the fc keys once more, in reverse order, on the race's own operands:
+    # whether the first key run reads fast whichever key it is
+    x, W = mod.make_fc_operands(FC_RACE_SHAPE[0], device, torch.Generator(device=device).manual_seed(0))
+    reverse = mod.time_fc(x, W, FC_RACE_KEYS[::-1], device)
+    del x, W
+    torch.cuda.empty_cache()
+    print("fc_race_order " + json.dumps(dict(forward={k: ms[k] for k in FC_RACE_KEYS}, reverse=reverse)), flush=True)
+    return dict(shapes=shapes, k3_modes=k3_modes, launches=launches, by_kt=by_kt, by_variant=by_variant,
+                by_mode=by_mode, results_ms=ms, reverse_ms=reverse, seconds=seconds)
 
 
 def main() -> int:
@@ -4313,21 +4356,33 @@ def main() -> int:
     # phase 33: K7 and K8 at the race's shape (K7's row at its first key's
     # tile, 2048; every tile beside it), K3's modes at B=256 and 18 actions
     race_rows, odd_rows = race["shapes"]["race"], race["shapes"]["odd"]
-    fc_keys = ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
+    fc_keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms", "max_abs_err")
+
+    def b_sweep(key):
+        return {str(B): {k: race["shapes"][f"B={B}"][key][k] for k in fc_keys} for B in FC_SWEEP_B}
+
     kernels += [
-        entry("fc_ktiled", "deep_neuroevolution_torch/csrc/fc_ktiled.cu", "scripts/exp_large_fwd.py:73",
+        entry("fc_ktiled", "deep_neuroevolution_torch/csrc/fc_matvec.cu", "scripts/exp_large_fwd.py:73",
               race["launches"], race_rows["fc_ktiled kt=2048"], B=FC_RACE_SHAPE[0], kt=2048,
               graph_ms=race_rows["fc_ktiled kt=2048"]["graph_ms"],
+              library_graph_ms=race_rows["fc_ktiled kt=2048"]["library_graph_ms"],
+              plan=race_rows["fc_ktiled kt=2048"]["plan"],
               launches_by_kt={str(kt): n for kt, n in race["by_kt"].items()},
+              launches_by_variant=race["by_variant"]["fc_ktiled"],
               by_kt={str(kt): {k: race_rows[f"fc_ktiled kt={kt}"][k] for k in fc_keys} for kt in FC_TILES},
               odd_shape={str(kt): {k: odd_rows[f"fc_ktiled kt={kt}"][k] for k in fc_keys} for kt in FC_TILES},
+              b_sweep=b_sweep("fc_ktiled kt=2048"),
               race_results_ms={k: race["results_ms"][k] for k in ("fc_kt1024", "fc_kt2048", "fc_kt2048_par",
-                                                                  "fc_kt3872")}),
-        entry("fc_whole", "deep_neuroevolution_torch/csrc/fc_whole.cu", "scripts/exp_large_fwd.py:107",
+                                                                  "fc_kt3872")},
+              race_reverse_ms={k: v for k, v in race["reverse_ms"].items() if k != "fc_whole"}),
+        entry("fc_whole", "deep_neuroevolution_torch/csrc/fc_matvec.cu", "scripts/exp_large_fwd.py:107",
               race["launches"], race_rows["fc_whole"], B=FC_RACE_SHAPE[0], graph_ms=race_rows["fc_whole"]["graph_ms"],
-              odd_shape={k: odd_rows["fc_whole"][k] for k in fc_keys},
+              library_graph_ms=race_rows["fc_whole"]["library_graph_ms"], plan=race_rows["fc_whole"]["plan"],
+              launches_by_variant=race["by_variant"]["fc_whole"],
+              odd_shape={k: odd_rows["fc_whole"][k] for k in fc_keys}, b_sweep=b_sweep("fc_whole"),
               population_linear_same_operands={k: race_rows["population_linear"][k] for k in fc_keys},
-              race_results_ms={k: race["results_ms"][k] for k in ("fc_whole", "fc_xla")}),
+              race_results_ms={k: race["results_ms"][k] for k in ("fc_whole", "fc_xla")},
+              race_reverse_ms=race["reverse_ms"]["fc_whole"]),
         entry("large_dqn_fused_scores.mxu_t", "deep_neuroevolution_torch/csrc/large_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:298", race["launches"], race["k3_modes"]["mxu_t/ksplit"],
               fc_mode="mxu_t", conv_mode="ksplit", B=FC_RACE_SHAPE[0], graph_ms=race["k3_modes"]["mxu_t/ksplit"]["graph_ms"],

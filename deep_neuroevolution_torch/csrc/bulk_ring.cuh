@@ -1,6 +1,6 @@
 // Shared-memory rings fed by the TMA's 1D bulk copy (`cp.async.bulk`), for
 // kernels K1 (population_linear.cu), K3 (large_dqn_fused.cu), K5
-// (dqn_conv_chain.cu) and K4/K6 (vbn_dqn_fused.cu).
+// (dqn_conv_chain.cu), K4/K6 (vbn_dqn_fused.cu) and K7/K8 (fc_matvec.cu).
 //
 // A ring is a few stages of shared memory, each guarded by a pair of
 // mbarriers: `full[s]` completes when the stage's bulk copies have landed
@@ -67,6 +67,24 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
           smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// An L2 policy under which the lines a copy brings in go first: for bytes
+// read once (K7/K8's W, csrc/fc_matvec.cu).
+__device__ __forceinline__ uint64_t l2_evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// bulk_copy_g2s under an L2 cache policy.
+__device__ __forceinline__ void bulk_copy_g2s_hint(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
+                                                   uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], "
+      "%4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
       : "memory");
 }
 

@@ -127,6 +127,8 @@ def load() -> ctypes.CDLL:
     lib.nevo_fc_whole.restype = i32
     lib.nevo_fc_ktiled.argtypes = [vp] * 3 + [i32] * 5 + [vp]
     lib.nevo_fc_ktiled.restype = i32
+    lib.nevo_fc_bulk.argtypes = [vp] * 6  # x, W, partials, y, the plan's FcBulkArgs, stream
+    lib.nevo_fc_bulk.restype = i32
     lib.nevo_dqn_conv_chain.argtypes = [vp] * 8 + [i32, i32, i32, i32, i32, vp]
     lib.nevo_dqn_conv_chain.restype = i32
     for name in ("nevo_vbn_dqn_fused1", "nevo_vbn_dqn_fused"):
@@ -148,8 +150,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
-    """The card's streaming multiprocessors, which the launch plans of K1
-    and K4/K6 divide their work over."""
+    """The card's streaming multiprocessors, which the launch plans of K1,
+    K4/K6 and K7/K8 divide their work over."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

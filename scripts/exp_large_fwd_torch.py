@@ -6,12 +6,13 @@ marginal method, under the same keys of ``results_ms``:
 
 * the fc, the [B, 7744]·[B, 7744, 512] bf16 mat-vec → f32:
   ``fc_kt1024``, ``fc_kt2048``, ``fc_kt2048_par`` and ``fc_kt3872`` run
-  kernel K7 (``fc_ktiled``, csrc/fc_ktiled.cu) with that tile of K rows
-  (``_par`` and the 3872 tile's VMEM limit are TPU compile options with no
-  counterpart here, so ``fc_kt2048_par`` is K7 at 2048 again); ``fc_whole``
-  runs kernel K8 (csrc/fc_whole.cu); ``fc_xla`` is one ``torch.bmm``, the
-  counterpart of the einsum that XLA computed outside any Pallas kernel (its
-  output is bf16, widened to f32);
+  kernel K7 (``fc_ktiled`` of ops/fc_matvec.py, csrc/fc_matvec.cu) with
+  that tile of K rows (``_par`` and the 3872 tile's VMEM limit are TPU
+  compile options with no counterpart here, so ``fc_kt2048_par`` is K7 at
+  2048 again); ``fc_whole`` runs kernel K8 (``fc_whole``, the same
+  source); ``fc_xla`` is one ``torch.bmm``, the counterpart of the einsum
+  that XLA computed outside any Pallas kernel (its output is bf16, widened
+  to f32);
 * the conv stack: ``conv_nhwc`` (the port's ``batch_conv2d`` per layer),
   ``conv_cf`` (channels-first im2col products), ``conv_fused`` (the
   frames' im2col, then kernel K5, as ``LargeDQN(conv_impl='fused')`` runs
@@ -54,11 +55,11 @@ import torch.nn.functional as F  # noqa: E402
 from deep_neuroevolution_torch.device import resolve_device  # noqa: E402
 from deep_neuroevolution_torch.models import LargeDQN  # noqa: E402
 from deep_neuroevolution_torch.models.core import _same_pads, batch_conv2d, extract_patches  # noqa: E402
-from deep_neuroevolution_torch.ops import _cuda_build  # noqa: E402
 from deep_neuroevolution_torch.ops import fused_dqn as fk  # noqa: E402
+from deep_neuroevolution_torch.ops.fc_matvec import (  # noqa: E402,F401 (the race's wrappers, under its names)
+    fc_ktiled, fc_ktiled_plain, fc_whole, fc_whole_plain)
 from deep_neuroevolution_torch.utils import machine  # noqa: E402
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 FC_K, FC_N = 7744, 512  # the LargeDQN's fc: 11·11·64 → 512
 REPS = 5  # timed replays of each graph (runs on the host clock); the least counts
 # K3's mode pairs (fc_mode, conv_mode), as exp_large_fwd.py:277-280
@@ -66,90 +67,6 @@ FUSED_MODES = {"fused_fma": ("fma", "ksplit"), "fused_mxut": ("mxu_t", "ksplit")
 
 
 # ---------------------------------------------------------------- fc variants
-
-def _check_fc(x: torch.Tensor, W: torch.Tensor) -> torch.device:
-    """x ``[B, K]`` and W ``[B, K, N]``, one dtype (float32 or bfloat16),
-    one device, contiguous; returns the device."""
-    if x.dim() != 2 or W.dim() != 3 or tuple(W.shape[:2]) != tuple(x.shape):
-        raise ValueError(f"x [B, K] and W [B, K, N] expected, got {tuple(x.shape)} and {tuple(W.shape)}")
-    if x.dtype not in _DTYPE_CODE or W.dtype != x.dtype:
-        raise TypeError(f"x and W must share float32 or bfloat16, got {x.dtype} and {W.dtype}")
-    if x.device != W.device:
-        raise ValueError(f"x on {x.device}, W on {W.device}")
-    if not (x.is_contiguous() and W.is_contiguous()):
-        raise ValueError("x and W must be contiguous")
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"the fc kernels run on cuda or cpu tensors, not {x.device}")
-    return x.device
-
-
-def fc_ktiled_plain(x: torch.Tensor, W: torch.Tensor, kt: int) -> torch.Tensor:
-    """K7's plain version: each tile of ``kt`` rows one f32 ``torch.bmm``,
-    added into y in tile order."""
-    B, K = x.shape
-    y = torch.zeros((B, W.shape[2]), dtype=torch.float32, device=x.device)
-    for k0 in range(0, K, kt):
-        y = y + torch.bmm(x[:, None, k0:k0 + kt].float(), W[:, k0:k0 + kt].float())[:, 0]
-    return y
-
-
-def fc_ktiled(x: torch.Tensor, W: torch.Tensor, kt: int) -> torch.Tensor:
-    """K7: y[b] = x[b]·W[b] ``[B, K]·[B, K, N]`` → ``[B, N]`` f32, K in
-    tiles of ``kt`` rows whose f32 partials are added into y in tile order
-    (csrc/fc_ktiled.cu). The plain version on a CPU tensor."""
-    dev = _check_fc(x, W)
-    if kt < 1:
-        raise ValueError(f"kt must be at least 1, not {kt}")
-    if dev.type == "cpu":
-        return fc_ktiled_plain(x, W, kt)
-    B, K = x.shape
-    N = W.shape[2]
-    if K == 0:
-        return torch.zeros((B, N), dtype=torch.float32, device=dev)
-    y = torch.empty((B, N), dtype=torch.float32, device=dev)
-    if B == 0 or N == 0:
-        return y
-    lib = _cuda_build.load()
-    err = lib.nevo_fc_ktiled(x.data_ptr(), W.data_ptr(), y.data_ptr(), B, K, N, kt, _DTYPE_CODE[x.dtype],
-                             _cuda_build.current_stream(dev))
-    _cuda_build.check(lib, err, "fc_ktiled")
-    fc_ktiled.launches += 1
-    fc_ktiled.launches_by_kt[kt] = fc_ktiled.launches_by_kt.get(kt, 0) + 1
-    return y
-
-
-fc_ktiled.launches = 0  # kernel launches since the caller last set it to 0
-# the same launches by tile size kt; a caller that zeroes .launches clears it too
-fc_ktiled.launches_by_kt = {}
-
-
-def fc_whole_plain(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """K8's plain version: one f32 ``torch.bmm``."""
-    return torch.bmm(x[:, None, :].float(), W.float())[:, 0]
-
-
-def fc_whole(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """K8: y[b] = x[b]·W[b] ``[B, K]·[B, K, N]`` → ``[B, N]`` f32, each
-    member's whole K in one block (csrc/fc_whole.cu). The plain version on a
-    CPU tensor."""
-    dev = _check_fc(x, W)
-    if dev.type == "cpu":
-        return fc_whole_plain(x, W)
-    B, K = x.shape
-    N = W.shape[2]
-    y = torch.empty((B, N), dtype=torch.float32, device=dev)
-    if B == 0 or N == 0:
-        return y
-    lib = _cuda_build.load()
-    err = lib.nevo_fc_whole(x.data_ptr(), W.data_ptr(), y.data_ptr(), B, K, N, _DTYPE_CODE[x.dtype],
-                            _cuda_build.current_stream(dev))
-    _cuda_build.check(lib, err, "fc_whole")
-    fc_whole.launches += 1
-    return y
-
-
-fc_whole.launches = 0  # kernel launches since the caller last set it to 0
-
 
 def fc_bmm(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """``fc_xla``'s counterpart: one ``torch.bmm`` in the operands' dtype,
@@ -269,16 +186,23 @@ def marginal(step, device: torch.device, ks=(2, 10), reps: int = REPS) -> float:
 
 # --------------------------------------------------------------------- main
 
-def make_operands(B: int, device: torch.device, seed: int = 0) -> dict:
-    """The race's operands from one seed: the fc's x ``[B, 7744]`` and W
-    ``[B, 7744, 512]`` (N(0, 1) in bf16); B LargeDQNs (18 actions) at their
-    initial θ (normc columns, zero biases) in bf16 on the split route's
-    parts; frames ``[B, 84, 84, 4]`` uniform in [0, 1)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+def make_fc_operands(B: int, device: torch.device, gen: torch.Generator):
+    """The fc's x ``[B, 7744]`` and W ``[B, 7744, 512]``, N(0, 1) in bf16,
+    from ``gen``."""
     x = torch.randn((B, FC_K), generator=gen, device=device).to(torch.bfloat16)
     W = torch.empty((B, FC_K, FC_N), dtype=torch.bfloat16, device=device)
     for b in range(B):  # member by member: no f32 copy of the whole W
         W[b] = torch.randn((FC_K, FC_N), generator=gen, device=device)
+    return x, W
+
+
+def make_operands(B: int, device: torch.device, seed: int = 0) -> dict:
+    """The race's operands from one seed: the fc's (``make_fc_operands``);
+    B LargeDQNs (18 actions) at their initial θ (normc columns, zero
+    biases) in bf16 on the split route's parts; frames ``[B, 84, 84, 4]``
+    uniform in [0, 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x, W = make_fc_operands(B, device, gen)
     model = LargeDQN(num_actions=18, compute_dtype="bfloat16", forward_impl="split", conv_impl="einsum")
     thetas = model.reinit_theta(torch.randn((B, model.num_params), generator=gen, device=device))
     parts, _ = model.prepare_batch_params((thetas, None))
@@ -299,6 +223,13 @@ def fc_variants():
     }
 
 
+def time_fc(x: torch.Tensor, W: torch.Tensor, names, device: torch.device) -> dict:
+    """The fc variants ``names`` (keys of ``fc_variants``) on x, W, timed in
+    that order; key → ms of one step."""
+    fns = fc_variants()
+    return {name: marginal(lambda t, _fn=fns[name]: _fn(torch.tanh(x + t), W).sum(), device) for name in names}
+
+
 def run(B: int, only, device) -> dict:
     """The race at B members on ``device``; returns ``results_ms`` (key →
     ms, and ``conv_equiv_maxdiff``). ``only``: comma-separated keys."""
@@ -309,11 +240,7 @@ def run(B: int, only, device) -> dict:
         return names is None or name in names
 
     ops = make_operands(B, device)
-    out = {}
-    for name, fn in fc_variants().items():
-        if want(name):
-            x, W = ops["x"], ops["W"]
-            out[name] = marginal(lambda t, _fn=fn: _fn(torch.tanh(x + t), W).sum(), device)
+    out = time_fc(ops["x"], ops["W"], [n for n in fc_variants() if want(n)], device)
 
     parts, obs = ops["parts"], ops["obs"]
     for name, fn in (("conv_nhwc", conv_chain_nhwc), ("conv_cf", conv_chain_cf)):

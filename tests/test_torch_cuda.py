@@ -18,6 +18,7 @@ from deep_neuroevolution_torch.algos.rollout_host import collect_ref_batch_host
 from deep_neuroevolution_torch.envs.atari import AtariEnv
 from deep_neuroevolution_torch.models import LargeDQN, SmallDQN, VirtualBNDQN
 from deep_neuroevolution_torch.models.core import extract_patches
+from deep_neuroevolution_torch.ops import fc_matvec
 from deep_neuroevolution_torch.ops import fused_dqn as fk
 from deep_neuroevolution_torch.ops import optim
 from deep_neuroevolution_torch.ops.noise import NoiseTable
@@ -556,38 +557,56 @@ def test_large_dqn_fused_modes_on_engine_frames(cuda_device, modes):
     assert torch.equal(y.argmax(-1)[clear], ref.argmax(-1)[clear])
 
 
-# K7 and K8: (B, K, N, dtype, offset). The race's shape at B = 16 in bf16
-# and float32; a tail tile (K = 300) with a partly filled column chunk
-# (N = 200); rows that are not a multiple of 16 bytes (N = 37, one element
-# a load); W off 16-byte alignment (offset = 1)
-FC_CASES = [(16, 7744, 512, torch.bfloat16, 0), (16, 7744, 512, torch.float32, 0), (5, 300, 200, torch.bfloat16, 0),
-            (3, 300, 37, torch.bfloat16, 0), (3, 300, 40, torch.float32, 1)]
-FC_KERNELS = {"whole": None, "kt128": 128, "kt1024": 1024, "kt2048": 2048, "kt3872": 3872}
-
-
-def _fc_call(name):
-    kt = FC_KERNELS[name]
-    if kt is None:
-        return exp_large_fwd.fc_whole, exp_large_fwd.fc_whole, exp_large_fwd.fc_whole_plain
-    return (exp_large_fwd.fc_ktiled, lambda x, W: exp_large_fwd.fc_ktiled(x, W, kt),
-            lambda x, W: exp_large_fwd.fc_ktiled_plain(x, W, kt))
+# K7 and K8: (B, K, N, dtype, offset, the plan's variant). The race's
+# shape at B = 16 in bf16 and float32, at B = 1 and at B = 7; B = 133 (more
+# members than SMs); a tail tile (K = 296) with a partly filled column
+# chunk (N = 200) on the bulk variant; on the general one: rows of W that
+# are not a multiple of 16 bytes (N = 37, one element a load), W off
+# 16-byte alignment (offset = 1, one element a load), and rows of x that
+# are not (K = 300 bf16, K = 301 float32) beside aligned rows of W, 16-byte
+# loads of 8 and 4 elements with a tail tile and a partly filled chunk.
+FC_CASES = [(16, 7744, 512, torch.bfloat16, 0, "bulk"), (16, 7744, 512, torch.float32, 0, "bulk"),
+            (1, 7744, 512, torch.bfloat16, 0, "bulk"), (7, 7744, 512, torch.bfloat16, 0, "bulk"),
+            (133, 1024, 256, torch.bfloat16, 0, "bulk"), (5, 296, 200, torch.bfloat16, 0, "bulk"),
+            (3, 300, 37, torch.bfloat16, 0, "general"), (3, 300, 40, torch.float32, 1, "general"),
+            (5, 300, 200, torch.bfloat16, 0, "general"), (3, 301, 200, torch.float32, 0, "general")]
+# K8, and K7's tile as a function of K and of R, the rows of the plan's
+# whole unit: one row, a unit less or more one row, the race's tiles, past K
+FC_KERNELS = {"whole": None, "kt1": lambda K, R: 1, "ktR-1": lambda K, R: R - 1, "ktR+1": lambda K, R: R + 1,
+              "kt128": lambda K, R: 128, "kt1024": lambda K, R: 1024, "kt2048": lambda K, R: 2048,
+              "kt3872": lambda K, R: 3872, "ktK+5": lambda K, R: K + 5}
 
 
 @pytest.mark.parametrize("kernel", list(FC_KERNELS))
 @pytest.mark.parametrize("case", FC_CASES)
 def test_fc_kernels_match_plain(cuda_device, case, kernel):
     """K7 at each tile size and K8 against their plain versions: float32
-    sums in another order, within 1e-5·max|y|; each launch counts once, and
-    a second launch repeats the first bit for bit (no atomics in any sum)."""
-    B, K, N, dtype, offset = case
+    sums in another order, within 1e-5·max|y|; the plan takes the case's
+    variant, each launch counts once under it, and a second launch repeats
+    the first bit for bit (no atomics in any sum)."""
+    B, K, N, dtype, offset, variant = case
     x, W = _k1_inputs(B, K, N, cuda_device, dtype, offset)
-    counted, fn, plain = _fc_call(kernel)
-    before = counted.launches
+    if FC_KERNELS[kernel] is None:
+        kt, counted = None, exp_large_fwd.fc_whole
+        fn, plain = exp_large_fwd.fc_whole, exp_large_fwd.fc_whole_plain
+    else:
+        kt = max(1, FC_KERNELS[kernel](K, fc_matvec.plan_for(x, W).rows or 32))
+        counted = exp_large_fwd.fc_ktiled
+
+        def fn(x, W):
+            return exp_large_fwd.fc_ktiled(x, W, kt)
+
+        def plain(x, W):
+            return exp_large_fwd.fc_ktiled_plain(x, W, kt)
+
+    p = fc_matvec.plan_for(x, W, kt)
+    assert p.variant == variant, p.reason
+    before, by_variant = counted.launches, counted.launches_by_variant[p.variant]
     y = fn(x, W)
     ref = plain(x, W)
     again = fn(x, W)
     torch.cuda.synchronize()
-    assert counted.launches == before + 2
+    assert counted.launches == before + 2 and counted.launches_by_variant[p.variant] == by_variant + 2
     assert y.dtype == torch.float32 and y.shape == (B, N)
     torch.testing.assert_close(y, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
     assert torch.equal(y, again)
