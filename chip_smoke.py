@@ -263,7 +263,24 @@ ends:
    the bulk variant, K3's 'mxu_t' variant and K5 must launch, and
    ``results_ms`` must hold a number under every key of
    results/exp_large_fwd_r04.json; last, the race's five fc keys timed
-   once more in reverse order (printed beside the artifact's, not in it).
+   once more in reverse order (printed beside the artifact's, not in it);
+34. the measurement scripts, each through its ``main`` into a temporary
+   directory: scripts/profile_atari_stages_torch.py for the VBN-DQN and
+   the LargeDQN at B=256, every stage captured in a graph (each JAX
+   profile's stage keys with a time > 0; each stage's timed runs launch
+   exactly the kernel ``PROFILE_STAGE_KERNELS`` names, and no kernel where
+   it names none: K1, K4 and K6, and K1 and K3, each in its own stages;
+   'auto' must take the K3 route; the race's launches are read apart);
+   scripts/bench_atari_e2e_torch.py at its defaults with one timed
+   generation (K1 and K2 launch, the phases sum to the generation's
+   seconds); scripts/bench_engine_torch.py at B=256, threads 1, 2 and 4,
+   75 steps each, with the upload and the capability from this phase's
+   profile (each backend's resets equal at every thread count, and some);
+   scripts/scaling_study_torch.py at 1 and 2 ranks with one window of one
+   generation a point (K2 in every rank of every maze pod, K1 and K2 in
+   both ranks of the real host pod); scripts/local_run_exp_torch.sh es
+   configurations/maze_es.json, one generation through ``main train``.
+   Each artifact's keys must be the JAX artifact's plus ``device``.
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -3970,6 +3987,193 @@ def run_fc_race(device) -> dict:
                 by_mode=by_mode, results_ms=ms, reverse_ms=reverse, seconds=seconds)
 
 
+# phase 34: the measurement scripts (scripts/*_torch.py), each through its
+# main into a temporary directory: the stage profile of both models at the
+# JAX default B, the e2e bench at its defaults with one timed generation, the
+# engine bench at B=256 (threads 1, 2, 4) with the upload, the scaling study
+# at 1 and 2 ranks with one window a point, and the local launcher
+MEASURE_B = 256
+MEASURE_E2E_GENS = 1
+MEASURE_ENGINE_STEPS = 75  # half the script's 150; ToyCatch episodes end from step ~60, so slots still reset
+MEASURE_PROFILES = {  # model → (the JAX artifact whose keys it keeps, those whose stage keys it must hold)
+    "small": ("profile_stages_r04.json", ("profile_stages_r03.json", "profile_stages_r04.json",
+                                          "profile_stages_r04_b512.json")),
+    "large": ("profile_stages_r04_large.json", ("profile_stages_r04_large.json",)),
+}
+PROFILE_STAGE_KERNELS = {  # the one kernel each profile stage runs on the card; every other stage runs none
+    **{n: "population_linear" for n in ("fc_pallas_f32", "fc_pallas_bf16", "act_old", "act_new", "act_new_bf16",
+                                         "act_new_bf16_rerun", "act_folded_bf16", "lg_fc_pallas")},
+    "act_fused1": "vbn_dqn_fused1_scores", "act_fused": "vbn_dqn_fused_scores",
+    "lg_forward": "large_dqn_fused_scores", "lg_forward_fused": "large_dqn_fused_scores",
+}
+
+
+def top_keys(art: dict, jax_file: str, what: str) -> None:
+    """The artifact's keys are the committed JAX artifact's plus ``device``,
+    which names a card."""
+    want = set(json.loads((ROOT / "results" / jax_file).read_text()))
+    require(set(art) == want | {"device"}, f"{what}: keys {sorted(art)}, want {sorted(want)} + device")
+    require(isinstance(art["device"], dict) and art["device"]["card"] not in ("", "cpu"), f"{what}: no card named")
+
+
+def measure_profile(device, work: Path) -> dict:
+    """profile_atari_stages_torch.py for both models at MEASURE_B: every JAX
+    stage key with a finite time > 0, every stage captured in a graph, each
+    stage's timed runs launching the kernel PROFILE_STAGE_KERNELS names and
+    no other, the LargeDQN's 'auto' on K3. ``launches`` sums the stages';
+    the race's (LargeDQN) are ``race_launches``."""
+    mod = campaign_script("profile_atari_stages_torch")
+    out = {}
+    for model, (jax_art, jax_files) in MEASURE_PROFILES.items():
+        path = work / f"profile_{model}.json"
+        argv = ["--model", model, "--B", str(MEASURE_B), "--out", str(path), "--device", str(device)]
+        art, seconds = synced_seconds(lambda: mod.run(argv))
+        what = f"profile {model}"
+        top_keys(art, jax_art, what)
+        want = set().union(*(json.loads((ROOT / "results" / f).read_text())["stages_ms"] for f in jax_files))
+        ms, notes = art["stages_ms"], art["notes"]
+        require(want <= set(ms), f"{what}: no reading of {sorted(want - set(ms))}")
+        require(all(math.isfinite(v) and v > 0 for v in ms.values()), f"{what}: stage times {ms}")
+        require(all(notes[k]["timing"] == "graph" for k in ms), f"{what}: a stage not timed in a graph")
+        by_stage = {k: notes[k]["launches"] for k in ms}
+        for k, counts in by_stage.items():
+            kernel = PROFILE_STAGE_KERNELS.get(k)
+            require(set(counts) == ({kernel} if kernel else set()), f"{what}: stage {k} launched {counts}, "
+                    f"want {kernel or 'no kernel'}")
+        launches = {name: sum(c.get(name, 0) for c in by_stage.values()) for name in kernel_counters()}
+        row = dict(card=art["device"]["card"], B=art["B"], seconds=seconds, stages_ms=ms,
+                   timing={k: notes[k]["timing"] for k in ms}, launches=launches, launches_by_stage=by_stage)
+        if model == "small":
+            row["action_match_vs_split"] = {k: art["notes"][k]["action_match_vs_split"]
+                                            for k in ("act_folded_bf16", "act_fused1", "act_fused")}
+        else:
+            require(all(isinstance(v, float) and math.isfinite(v) for v in art["race_ms"].values()),
+                    f"{what}: race_ms {art['race_ms']}")
+            routes = {k: notes[k]["route"] for k in ("lg_forward", "lg_forward_fused")}
+            require(routes == {"lg_forward": "K3", "lg_forward_fused": "K3"}, f"{what}: routes {routes}")
+            row.update(race_ms=art["race_ms"], race_launches=notes["race_ms"]["launches"], routes=routes,
+                       on_chip_equivalence=art["on_chip_equivalence"])
+        print(f"measure_profile_{model} " + json.dumps(row), flush=True)
+        out[model] = dict(row, path=path)
+    return out
+
+
+def measure_e2e(device, work: Path) -> dict:
+    """bench_atari_e2e_torch.py at its defaults, MEASURE_E2E_GENS timed
+    generations: K1 and K2 launch (K2 once a generation, the warm-up's
+    included) and the phases sum to ``s_per_generation``."""
+    mod = campaign_script("bench_atari_e2e_torch")
+    argv = ["--gens", str(MEASURE_E2E_GENS), "--out", str(work / "bench_e2e_torch.json"), "--device", str(device)]
+    zero_counters()
+    art, seconds = synced_seconds(lambda: mod.main(argv))
+    launches = read_counters()
+    top_keys(art, "bench_e2e_r03.json", "e2e bench")
+    phases = art["phase_s_per_generation"]
+    want = set(json.loads((ROOT / "results" / "bench_e2e_r03.json").read_text())["phase_s_per_generation"])
+    require(set(phases) == want, f"e2e bench: phases {sorted(phases)}")
+    require(abs(sum(phases.values()) - art["s_per_generation"]) <= 1e-9 * art["s_per_generation"],
+            f"e2e bench: phases {phases} do not sum to {art['s_per_generation']}")
+    require(launches["population_linear"] > 0 and launches["noise_gradient"] == 1 + MEASURE_E2E_GENS,
+            f"e2e bench: launches {launches}")
+    row = dict(card=art["device"]["card"], seconds=seconds, s_per_generation=art["s_per_generation"],
+               phase_s_per_generation=phases, frames_per_s=art["frames_per_s"], launches=launches)
+    print("measure_e2e " + json.dumps(row), flush=True)
+    return row
+
+
+def measure_engine(device, work: Path, profile: Path) -> dict:
+    """bench_engine_torch.py at B=256 with the upload, its capability from
+    this phase's profile: each backend's resets equal at every thread
+    count."""
+    mod = campaign_script("bench_engine_torch")
+    argv = ["--batch", "256", "--steps", str(MEASURE_ENGINE_STEPS), "--staging", "--profile", str(profile),
+            "--out", str(work / "engine_bench_torch.json"), "--device", str(device)]
+    art, seconds = synced_seconds(lambda: mod.main(argv))
+    top_keys(art, "engine_bench_r04.json", "engine bench")
+    for backend in ("toy", "ale_stub"):
+        resets = {n: r["resets"] for n, r in art[backend].items()}
+        require(set(resets) == {"1", "2", "4"} and len(set(resets.values())) == 1 and resets["1"] > 0,
+                f"engine bench {backend}: resets by thread count {resets}")
+    up = art["staging_uint8"]
+    require(up["platform"] == "cuda" and math.isfinite(up["gb_per_s"]) and up["gb_per_s"] > 0, f"upload {up}")
+    cap = art["deployment_model"]["device_capability_frames_per_s"]
+    require(cap is not None and cap > 0, f"engine bench: capability {cap}")
+    row = dict(card=art["device"]["card"], seconds=seconds,
+               frames_per_s={b: {n: r["frames_per_s"] for n, r in art[b].items()} for b in ("toy", "ale_stub")},
+               resets={b: art[b]["1"]["resets"] for b in ("toy", "ale_stub")}, staging_gb_per_s=up["gb_per_s"],
+               staging_s=up["s_per_transfer"], deployment_model=art["deployment_model"])
+    print("measure_engine " + json.dumps(row), flush=True)
+    return row
+
+
+def measure_scaling(device, work: Path) -> dict:
+    """scaling_study_torch.py with ``--preset smoke`` (1 and 2 ranks, one
+    window of one generation a point): K2 launches in every
+    rank of every maze pod, K1 and K2 in both ranks of the real host pod."""
+    mod = campaign_script("scaling_study_torch")
+    argv = ["--out", str(work / "scaling_torch.json"), "--device", str(device), "--preset", "smoke"]
+    art, seconds = synced_seconds(lambda: mod.main(argv))
+    top_keys(art, "scaling_r05.json", "scaling study")
+    ranks = {}
+    for key in ("mesh_strong_scaling", "mesh_weak_scaling"):
+        for n, r in art[key].items():
+            k2 = [x["noise_gradient"] for x in r["launches_by_rank"]]
+            require(len(k2) == int(n) and all(x > 0 for x in k2), f"scaling {key} {n}: K2 by rank {k2}")
+            ranks[f"{key}_{n}"] = k2
+    real = art["hostpod_real_2proc"]
+    require(all(x["population_linear"] > 0 and x["noise_gradient"] > 0 for x in real["launches_by_rank"]),
+            f"scaling: host pod launches by rank {real['launches_by_rank']}")
+    require(all(math.isfinite(r["s_per_gen"]) and r["s_per_gen"] > 0 for key in
+                ("mesh_strong_scaling", "mesh_weak_scaling", "hostpod_emulation") for r in art[key].values()),
+            "scaling: a point's seconds")
+    row = dict(card=art["device"]["card"], seconds=seconds, preset="smoke",
+               strong={n: r["s_per_gen"] for n, r in art["mesh_strong_scaling"].items()},
+               weak={n: r["s_per_gen"] for n, r in art["mesh_weak_scaling"].items()},
+               emulation={n: r["s_per_gen"] for n, r in art["hostpod_emulation"].items()},
+               indep_s_per_gen=art["hostpod_indep_2proc"]["s_per_gen"], real_s_per_gen=real["s_per_gen"],
+               collective_s_per_gen=real["collective_s_per_gen"], k2_by_rank=ranks,
+               hostpod_launches_by_rank=real["launches_by_rank"])
+    print("measure_scaling " + json.dumps(row), flush=True)
+    return row
+
+
+def measure_launcher(work: Path) -> dict:
+    """scripts/local_run_exp_torch.sh es configurations/maze_es.json LOG,
+    with ``python`` this interpreter: one generation through ``main train``
+    (its --iterations default), its metrics row and trainer snapshot
+    written."""
+    bindir = work / "bin"
+    bindir.mkdir()
+    (bindir / "python").write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    (bindir / "python").chmod(0o755)
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PATH"] = f"{bindir}{os.pathsep}{env.get('PATH', '')}"
+    log = work / "launcher_log"
+    t0 = time.perf_counter()
+    p = subprocess.run(["bash", str(ROOT / "scripts" / "local_run_exp_torch.sh"), "es",
+                        str(ROOT / "configurations" / "maze_es.json"), str(log)],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    require(p.returncode == 0, f"local_run_exp_torch.sh failed ({p.returncode}):\n{(p.stdout + p.stderr)[-3000:]}")
+    rows = [json.loads(ln) for ln in (log / "metrics.jsonl").read_text().splitlines() if ln.strip()]
+    require(len(rows) == 1 and (log / "snapshot.pkl").exists(), f"launcher: {len(rows)} metrics rows, snapshot "
+            f"{(log / 'snapshot.pkl').exists()}")
+    row = dict(seconds=seconds, metrics=rows[0])
+    print("measure_launcher " + json.dumps(row), flush=True)
+    return row
+
+
+def run_measurement_scripts(device) -> dict:
+    """Phase 34 (see the module docstring)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_measure_") as tmp:
+        work = Path(tmp)
+        out = dict(profile=measure_profile(device, work), e2e=measure_e2e(device, work))
+        out["engine"] = measure_engine(device, work, out["profile"]["small"].pop("path"))
+        out["profile"]["large"].pop("path")
+        out.update(scaling=measure_scaling(device, work), launcher=measure_launcher(work))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4258,6 +4462,9 @@ def main() -> int:
     with Phase("the LargeDQN fc race: K7, K8 and K3's modes (scripts/exp_large_fwd_torch.py)"):
         race = run_fc_race(device)
     torch.cuda.empty_cache()
+    with Phase("the measurement scripts: stage profile, e2e phases, engine and upload, scaling, local launcher"):
+        measure = run_measurement_scripts(device)
+    torch.cuda.empty_cache()
     for key, run in (("humanoid_es", humanoid), ("humanoid_nses", humanoid_ns)):
         device_paths[key] = dict(k2_path_row(run["launches"], run["k2"]), physics=run["stats"]["physics"])
     device_paths["pod1_maze_es"] = dict(launches=pod_one["es"]["launches"]["noise_gradient"], B=256, D=498)
@@ -4295,6 +4502,29 @@ def main() -> int:
         **{f"{k}_by_batch": {str(r["B"]): r[k] for r in toy_ga["k3"]["rows"]} for k in ("graph_ms", "bound_ms", "max_abs_err")})
     device_paths["es_device"] = dict(launches=es_device["k2"], B=pairs, D=dim,
                                      max_abs_err=noise_runs["es"]["device"]["k2_max_abs_err"])
+    # phase 34's paths: the stage profile's stages (K1, K3, K4, K6), the
+    # forward race it runs (its own entry), the e2e bench (K1, K2) and the
+    # scaling study's ranks (K2 in every maze pod rank; K1 and K2 in the real
+    # host pod's)
+    prof_small, prof_large = measure["profile"]["small"]["launches"], measure["profile"]["large"]["launches"]
+    prof_race = measure["profile"]["large"]["race_launches"]
+
+    def race_path(name):
+        return {"measure_profile_large_race": dict(launches=prof_race.get(name, 0))}
+
+    scaling = measure["scaling"]
+    ns_k1.update(measure_profile_small=dict(launches=prof_small["population_linear"]),
+                 measure_profile_large=dict(launches=prof_large["population_linear"]),
+                 measure_e2e=dict(launches=measure["e2e"]["launches"]["population_linear"]),
+                 measure_scaling_hostpod=dict(launches_by_rank=[x["population_linear"] for x in
+                                                                scaling["hostpod_launches_by_rank"]]))
+    device_paths.update(measure_e2e=dict(launches=measure["e2e"]["launches"]["noise_gradient"]),
+                        measure_scaling=dict(maze_k2_by_rank=scaling["k2_by_rank"],
+                                             hostpod_launches_by_rank=[x["noise_gradient"] for x in
+                                                                       scaling["hostpod_launches_by_rank"]]))
+    pod_k3["measure_profile_large"] = dict(launches=prof_large["large_dqn_fused_scores"])
+    ns_k1.update(race_path("population_linear"))
+    pod_k3.update(race_path("large_dqn_fused_scores"))
 
     def entry(name, source, replaces, launches, k, **extra):
         return {
@@ -4343,15 +4573,18 @@ def main() -> int:
                   teacher_forced_max_abs_err=replays["large_chain"]["teacher_forced_max_abs_err"]), **pod_k3}),
         entry("vbn_dqn_fused1_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:147", route_launches["fused1"], k4_row,
-              **vbn_extra("fused1", k4_row)),
+              **vbn_extra("fused1", k4_row),
+              other_paths={"measure_profile_small": dict(launches=prof_small["vbn_dqn_fused1_scores"])}),
         entry("dqn_conv_chain_fused", "deep_neuroevolution_torch/csrc/dqn_conv_chain.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:422", rs_launches, k5_row,
               graph_ms=k5_row["graph_ms"], einsum_ms=k5_row["einsum_ms"],
               launches_by_batch={str(b): n for b, n in k5_by_batch.items()},
-              **{f"{k}_by_batch": {str(r["B"]): r[k] for r in k5_rs["rows"]} for k in ("graph_ms", "bound_ms")}),
+              **{f"{k}_by_batch": {str(r["B"]): r[k] for r in k5_rs["rows"]} for k in ("graph_ms", "bound_ms")},
+              other_paths=race_path("dqn_conv_chain_fused")),
         entry("vbn_dqn_fused_scores", "deep_neuroevolution_torch/csrc/vbn_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:471", route_launches["fused"], k6_row,
-              **vbn_extra("fused", k6_row)),
+              **vbn_extra("fused", k6_row),
+              other_paths={"measure_profile_small": dict(launches=prof_small["vbn_dqn_fused_scores"])}),
     ]
     # phase 33: K7 and K8 at the race's shape (K7's row at its first key's
     # tile, 2048; every tile beside it), K3's modes at B=256 and 18 actions
@@ -4374,7 +4607,8 @@ def main() -> int:
               b_sweep=b_sweep("fc_ktiled kt=2048"),
               race_results_ms={k: race["results_ms"][k] for k in ("fc_kt1024", "fc_kt2048", "fc_kt2048_par",
                                                                   "fc_kt3872")},
-              race_reverse_ms={k: v for k, v in race["reverse_ms"].items() if k != "fc_whole"}),
+              race_reverse_ms={k: v for k, v in race["reverse_ms"].items() if k != "fc_whole"},
+              other_paths=race_path("fc_ktiled")),
         entry("fc_whole", "deep_neuroevolution_torch/csrc/fc_matvec.cu", "scripts/exp_large_fwd.py:107",
               race["launches"], race_rows["fc_whole"], B=FC_RACE_SHAPE[0], graph_ms=race_rows["fc_whole"]["graph_ms"],
               library_graph_ms=race_rows["fc_whole"]["library_graph_ms"], plan=race_rows["fc_whole"]["plan"],
@@ -4382,7 +4616,7 @@ def main() -> int:
               odd_shape={k: odd_rows["fc_whole"][k] for k in fc_keys}, b_sweep=b_sweep("fc_whole"),
               population_linear_same_operands={k: race_rows["population_linear"][k] for k in fc_keys},
               race_results_ms={k: race["results_ms"][k] for k in ("fc_whole", "fc_xla")},
-              race_reverse_ms=race["reverse_ms"]["fc_whole"]),
+              race_reverse_ms=race["reverse_ms"]["fc_whole"], other_paths=race_path("fc_whole")),
         entry("large_dqn_fused_scores.mxu_t", "deep_neuroevolution_torch/csrc/large_dqn_fused.cu",
               "deep_neuroevolution_tpu/ops/pallas_fused_dqn.py:298", race["launches"], race["k3_modes"]["mxu_t/ksplit"],
               fc_mode="mxu_t", conv_mode="ksplit", B=FC_RACE_SHAPE[0], graph_ms=race["k3_modes"]["mxu_t/ksplit"]["graph_ms"],

@@ -24,9 +24,10 @@ marginal method, under the same keys of ``results_ms``:
 
 Each step perturbs its input as the JAX script does (``tanh(x + t)``,
 ``obs + 1e-6·t``, ``patches·(1 + 1e-6·t)``), so no step repeats another's
-work. On a card, K = 2 and K = 10 steps are captured in two CUDA graphs and
-each graph's replay is timed with CUDA events; one step's time is
-(T₁₀ − T₂) / 8, with each T the least over REPS replays. With
+work. The timer is scripts/marginal_torch.py's, which the stage profile
+shares: on a card, K = 2 and K = 10 steps are captured in two CUDA graphs
+and each graph's replay is timed with CUDA events; one step's time is
+(T₁₀ − T₂) / 8, with each T the least over ``REPS`` replays. With
 ``--device cpu`` the steps run eagerly on the host clock (the plain
 versions of the kernels; a check of the control flow, not a measurement).
 A failing variant raises.
@@ -45,49 +46,28 @@ import argparse
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from deep_neuroevolution_torch.device import resolve_device  # noqa: E402
 from deep_neuroevolution_torch.models import LargeDQN  # noqa: E402
-from deep_neuroevolution_torch.models.core import _same_pads, batch_conv2d, extract_patches  # noqa: E402
+from deep_neuroevolution_torch.models.core import _same_pads, extract_patches  # noqa: E402
 from deep_neuroevolution_torch.ops import fused_dqn as fk  # noqa: E402
 from deep_neuroevolution_torch.ops.fc_matvec import (  # noqa: E402,F401 (the race's wrappers, under its names)
     fc_ktiled, fc_ktiled_plain, fc_whole, fc_whole_plain)
 from deep_neuroevolution_torch.utils import machine  # noqa: E402
+from marginal_torch import CONV_LAYERS, conv_chain_nhwc, fc_bmm, marginal  # noqa: E402,F401 (shared with the stage profile)
 
 FC_K, FC_N = 7744, 512  # the LargeDQN's fc: 11·11·64 → 512
-REPS = 5  # timed replays of each graph (runs on the host clock); the least counts
 # K3's mode pairs (fc_mode, conv_mode), as exp_large_fwd.py:277-280
 FUSED_MODES = {"fused_fma": ("fma", "ksplit"), "fused_mxut": ("mxu_t", "ksplit"), "fused_scratch": ("fma", "scratch")}
 
 
-# ---------------------------------------------------------------- fc variants
-
-def fc_bmm(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """``fc_xla``'s counterpart: one ``torch.bmm`` in the operands' dtype,
-    widened to f32."""
-    return torch.bmm(x[:, None, :], W)[:, 0].float()
-
-
 # -------------------------------------------------------------- conv variants
-
-CONV_LAYERS = (("conv1/w", 4), ("conv2/w", 2), ("conv3/w", 1))
-
-
-def conv_chain_nhwc(parts, x: torch.Tensor) -> torch.Tensor:
-    """The conv stack on NHWC frames, a batched product over im2col patches
-    per layer (``batch_conv2d``), each output relu'd and rounded to bf16;
-    no biases, as in the JAX script."""
-    h = x
-    for nm, s in CONV_LAYERS:
-        h = torch.relu(batch_conv2d(parts[nm], h, stride=s)).to(torch.bfloat16)
-    return h
-
 
 def _extract_patches_cf(x: torch.Tensor, k: int, stride: int, padding: str = "SAME"):
     """NCHW im2col: ``[B, C, H, W]`` → ``[B, k·k·C, P]`` with K order (i, j,
@@ -127,61 +107,6 @@ def conv_chain_cf(parts, x: torch.Tensor) -> torch.Tensor:
     for nm, s in CONV_LAYERS:
         h = torch.relu(batch_conv2d_cf(parts[nm], h, stride=s)).to(torch.bfloat16)
     return h.permute(0, 2, 3, 1)
-
-
-# ------------------------------------------------------------------- timing
-
-def _steps(step, K: int, device: torch.device) -> torch.Tensor:
-    acc = torch.zeros((), dtype=torch.float32, device=device)
-    for t in range(K):
-        acc = acc + step(t)
-    return acc
-
-
-def _graph_ms(step, K: int, reps: int, device: torch.device) -> float:
-    """K steps captured in one CUDA graph: the least of ``reps`` replays'
-    milliseconds by CUDA events."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):  # warm up outside the capture, as torch.cuda.graph asks
-        _steps(step, K, device)
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        _steps(step, K, device)
-    graph.replay()
-    torch.cuda.synchronize(device)
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize(device)
-        times.append(start.elapsed_time(end))
-    del graph
-    return min(times)
-
-
-def _host_ms(step, K: int, reps: int, device: torch.device) -> float:
-    _steps(step, K, device)
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        float(_steps(step, K, device))
-        times.append((time.perf_counter() - t0) * 1e3)
-    return min(times)
-
-
-def marginal(step, device: torch.device, ks=(2, 10), reps: int = REPS) -> float:
-    """Milliseconds of one ``step(t)`` (t = 0, 1, ...; each returns a
-    scalar) by the marginal method: (T_{ks[1]} − T_{ks[0]}) / (ks[1] −
-    ks[0]), so fixed costs cancel."""
-    timer = _graph_ms if device.type == "cuda" else _host_ms
-    ts = [timer(step, K, reps, device) for K in ks]
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    return (ts[1] - ts[0]) / (ks[1] - ks[0])
 
 
 # --------------------------------------------------------------------- main
