@@ -103,7 +103,7 @@ ends:
    pairs × 1,004,852);
 19. long runs on the card: ``main train --log_dir --snapshot_freq 1`` on
    phase 4's cut of es_atari_config.json and on maze_nses.json (the table
-   cut to 25M floats), 3 generations straight through against 2 and a
+   cut to 25M floats), 2 generations straight through against 1 and a
    resumed 1: θ and the last generation's returns and lengths must be
    equal bit for bit, and the straight run's policy file must load back to
    its θ; phase 4's cut with ``mirror_crn`` and σ = 0 (a pair's θ halves
@@ -131,8 +131,8 @@ ends:
    CPU's, no action apart but at a near tie;
 22. phase 4's cut of configurations/es_atari_config.json on each host
    engine ``obs_mode`` ('gray', 'indexed', 'preproc'), one trainer a mode:
-   a warm-up generation each, then two timed ones each, in turns (gray,
-   indexed, preproc, preproc, indexed, gray): seconds, frames/s and bytes
+   a warm-up generation each, then one timed one each (gray, indexed,
+   preproc): seconds, frames/s and bytes
    uploaded a slot-step (every frame upload counted); K1 and K2 must
    launch in each; the card's preprocessing of each mode's engine frames
    against the CPU's ('preproc' bit for bit, the others within 1e-6);
@@ -143,7 +143,7 @@ ends:
    1,004,852 (8 pairs against the CPU within 1e-5·max|g|); phase 4's cut
    on ``noise: virtual`` (K1 launches, K2 none) and on ``noise: device``
    (K2 once a generation, the first generation's call against its plain
-   version on the same table, offsets and weights), two generations each;
+   version on the same table, offsets and weights), one generation each;
    maze_es.json as a GA on
    ``noise: virtual``: every cached θ against its whole chain within 1e-6;
 24. the DQN family's other fields at B=128 on ToyCatch frames: a tanh
@@ -174,8 +174,8 @@ ends:
    script (``--pod-rank``) on phase 1's kernel library: the device pods
    (maze_es.json, maze_nses.json) and the host pods (phase 4's cut of
    es_atari_config.json, ga_atari_config.json at 256 members and cutoff
-   200, frostbite_nses.json; each table cut to 25M floats) a few
-   generations each, every rank's outputs against the same case's
+   200, frostbite_nses.json; each table cut to 25M floats) one
+   generation each, every rank's outputs against the same case's
    two-rank emulation in this process, bit for bit, and the maze ES pod
    against the single trainer whose rounds are its blocks (returns bit for
    bit, θ within 1e-6); K1, K2 and K3 must launch in each rank on their
@@ -271,8 +271,9 @@ ends:
    exactly the kernel ``PROFILE_STAGE_KERNELS`` names, and no kernel where
    it names none: K1, K4 and K6, and K1 and K3, each in its own stages;
    'auto' must take the K3 route; the race's launches are read apart);
-   scripts/bench_atari_e2e_torch.py at its defaults with one timed
-   generation (K1 and K2 launch, the phases sum to the generation's
+   scripts/bench_atari_e2e_torch.py at its defaults but the cutoff
+   (100 steps, half) with one timed generation (K1 and K2 launch, the
+   phases sum to the generation's
    seconds); scripts/bench_engine_torch.py at B=256, threads 1, 2 and 4,
    75 steps each, with the upload and the capability from this phase's
    profile (each backend's resets equal at every thread count, and some);
@@ -280,7 +281,23 @@ ends:
    generation a point (K2 in every rank of every maze pod, K1 and K2 in
    both ranks of the real host pod); scripts/local_run_exp_torch.sh es
    configurations/maze_es.json, one generation through ``main train``.
-   Each artifact's keys must be the JAX artifact's plus ``device``.
+   Each artifact's keys must be the JAX artifact's plus ``device``;
+35. the Humanoid campaign scripts at their defaults (population 128 on 32
+   slots, cutoff 1000, the 5M-float table, the 256×256 tanh MujocoMLP),
+   each into a temporary directory, on MuJoCo where it imports, else with
+   the scripts' env functions swapped whole for ``StandInHumanoid`` (the
+   lines say which physics ran): scripts/humanoid_curve_torch.py's
+   ``main`` for 3 generations of seed 0 against ``run_seed`` for 2 and a
+   resumed 3rd (curves, obs counts and the snapshots' θ bit for bit), the
+   first round's actions for 8 members against the CPU's forward;
+   scripts/run_humanoid_nses_torch.py's ``main`` for 2 generations an arm
+   (every θ finite, the NS-ES archive 3 + 2 points); then
+   scripts/assemble_humanoid_r05_torch.py over the curve just written. K2
+   must launch once a generation in each (64 pairs × 159,505 for ES, 16
+   for NS-ES's one round of 32 slots), each call against its plain
+   version; K2 timed at both shapes as in phase 3. Each artifact's keys
+   must be the JAX artifact's plus ``device``. Seconds and env steps/s a
+   generation; a learning outcome on the stand-in is a path check only.
 
 Every failure raises and the script exits non-zero without its last line.
 On success the line before the last is a JSON object with each kernel's
@@ -1804,29 +1821,29 @@ def train_cli(log_dir: str, exp_file: str, iterations: int, overrides: dict, dev
     return cli.cmd_train(cli.build_parser().parse_args(argv))
 
 
-def check_resume(exp_file: str, overrides: dict, device) -> dict:
-    """3 generations straight through against 2, then a resumed run of 1:
-    θ (every parent's for NS-ES) and the last generation's returns and
-    lengths bit for bit; the straight run's policy file of generation 3
-    loads back to its θ."""
+def check_resume(exp_file: str, overrides: dict, device, generations: int = 2) -> dict:
+    """``generations`` straight through against one fewer, then a resumed
+    run of 1: θ (every parent's for NS-ES) and the last generation's returns
+    and lengths bit for bit; the straight run's policy file of the last
+    generation loads back to its θ."""
     import torch
 
     from deep_neuroevolution_torch.utils import checkpoint
 
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        a = train_cli(f"{d}/a", exp_file, 3, overrides, device)
+        a = train_cli(f"{d}/a", exp_file, generations, overrides, device)
         straight = time.perf_counter() - t0
-        train_cli(f"{d}/b", exp_file, 2, overrides, device)
+        train_cli(f"{d}/b", exp_file, generations - 1, overrides, device)
         b = train_cli(f"{d}/b", exp_file, 1, overrides, device)
-        require(a.iteration == b.iteration == 3, f"{exp_file}: iterations {a.iteration}, {b.iteration}")
+        require(a.iteration == b.iteration == generations, f"{exp_file}: iterations {a.iteration}, {b.iteration}")
         thetas = [(p.theta, q.theta) for p, q in zip(a.parents, b.parents)] if hasattr(a, "parents") else []
         require(all(torch.equal(x, y) for x, y in [(a.theta, b.theta), *thetas]),
                 f"{exp_file}: the resumed run's θ differs from the straight run's")
         for f in ("returns", "lengths"):
             require(np.array_equal(getattr(a.last_stats, f), getattr(b.last_stats, f)),
                     f"{exp_file}: the resumed run's {f} differ")
-        (policy,) = Path(f"{d}/a").glob("snapshot_iter00003_rew*.pkl")
+        (policy,) = Path(f"{d}/a").glob(f"snapshot_iter{generations:05d}_rew*.pkl")
         _, theta, _ = checkpoint.load_policy_snapshot(str(policy), device=a.device)
         theta_a = a.parents[a.curr_parent].theta if hasattr(a, "parents") else a.theta
         require(torch.equal(theta, theta_a), f"{exp_file}: the policy file does not load back to θ")
@@ -2140,13 +2157,13 @@ def run_device_ga(device, table) -> list:
 # phase 22: phase 4's cut of es_atari_config.json on each of the engine's
 # obs modes, one trainer a mode, the timed generations in turns
 OBS_MODES = ("gray", "indexed", "preproc")
-OBS_TURNS = ("gray", "indexed", "preproc", "preproc", "indexed", "gray")
+OBS_TURNS = ("gray", "indexed", "preproc")
 
 
 def run_obs_modes(device) -> dict:
     """Phase 4's cut on each ``obs_mode``, one trainer a mode: a warm-up
     generation each, then one timed generation a turn of ``OBS_TURNS``
-    (each mode twice, the order reversed the second time): seconds,
+    (each mode once): seconds,
     frames/s, the bytes uploaded a slot-step (every ``_frames_to`` call's
     bytes over its rows); K1 and K2 must launch in each. Then the card's
     preprocessing of each mode's engine frames against the CPU's: 'preproc'
@@ -2288,7 +2305,7 @@ def time_virtual_gradient(device, dim: int) -> dict:
     return dict(out, dim=dim, cpu_pairs=VIRTUAL_CPU_PAIRS, max_abs_err=err, tol=tol)
 
 
-def run_es_noise_modes(device, generations: int = 2) -> dict:
+def run_es_noise_modes(device, generations: int = 1) -> dict:
     """Phase 4's cut of es_atari_config.json on ``noise: virtual`` and on
     ``noise: device`` (a 25M-float table built on the card), through the
     loader: ``generations`` generations each, every one with K1 launching
@@ -2659,11 +2676,11 @@ POD_TABLE = 25_000_000  # phase 27's table cut (each rank builds its own)
 # (K1, K2), a cut of ga_atari_config.json (K3: 256 members, cutoff 200) and
 # frostbite_nses.json (K1, K2), each table cut to 25M floats
 POD_CASES = {
-    "maze_es": ("maze_es.json", None, {"noise_size": POD_TABLE}, 2),
-    "maze_nses": ("maze_nses.json", None, {"noise_size": POD_TABLE}, 2),
-    "es_atari": ("es_atari_config.json", None, SMOKE_OVERRIDES, 2),
+    "maze_es": ("maze_es.json", None, {"noise_size": POD_TABLE}, 1),
+    "maze_nses": ("maze_nses.json", None, {"noise_size": POD_TABLE}, 1),
+    "es_atari": ("es_atari_config.json", None, SMOKE_OVERRIDES, 1),
     "ga_atari": ("ga_atari_config.json", "ga", {**GA_OVERRIDES, "population_size": 256}, 1),
-    "frostbite_nses": ("frostbite_nses.json", None, {"noise_size": POD_TABLE}, 2),
+    "frostbite_nses": ("frostbite_nses.json", None, {"noise_size": POD_TABLE}, 1),
 }
 POD_KERNELS = {"es_atari": ("population_linear", "noise_gradient"), "ga_atari": ("large_dqn_fused_scores",),
                "frostbite_nses": ("population_linear", "noise_gradient"), "maze_es": ("noise_gradient",),
@@ -3056,7 +3073,7 @@ def record_round(n_members: int = 8, n_steps: int = 4):
         def act(p, obs):
             out = act_fn(p, obs)
             if len(rec["steps"]) < n_steps:
-                rec["steps"].append((obs[:n_members].cpu(), out[:n_members].cpu()))
+                rec["steps"].append((obs[:n_members].to("cpu", copy=True), out[:n_members].to("cpu", copy=True)))
             return out
 
         act.prepare = act_fn.prepare
@@ -3589,14 +3606,20 @@ def campaign_script(name: str):
     return mod
 
 
-def same_keys(art: dict, jax_file: str, what: str) -> None:
+def same_keys(art: dict, jax_file: str, what: str, per_run=()) -> None:
     """The artifact's keys are the committed JAX artifact's plus ``device``,
     and each of its entries that is a dict there holds at least that
-    dict's keys."""
+    dict's keys; an entry named in ``per_run`` holds runs of its own (a
+    curve's seeds), each holding at least the keys of the JAX artifact's
+    first run."""
     want = json.loads((ROOT / "results" / jax_file).read_text())
     require(set(art) == set(want) | {"device"}, f"{what}: keys {sorted(art)}, want {sorted(want)} + device")
     for k, v in want.items():
-        if isinstance(v, dict):
+        if k in per_run:
+            first = next(iter(v.values()))
+            for run, got in art[k].items():
+                require(set(first) <= set(got), f"{what}: {k} {run} lacks {set(first) - set(got)}")
+        elif isinstance(v, dict):
             require(isinstance(art[k], dict) and set(v) <= set(art[k]), f"{what}: {k} lacks {set(v) - set(art[k])}")
     require(isinstance(art["device"], dict) and art["device"]["card"] and art["device"]["host_cpu"],
             f"{what}: no device entry")
@@ -3994,6 +4017,7 @@ def run_fc_race(device) -> dict:
 # at 1 and 2 ranks with one window a point, and the local launcher
 MEASURE_B = 256
 MEASURE_E2E_GENS = 1
+MEASURE_E2E_CUTOFF = 100  # half the script's 200: the phase's depth, to keep the whole run short
 MEASURE_ENGINE_STEPS = 75  # half the script's 150; ToyCatch episodes end from step ~60, so slots still reset
 MEASURE_PROFILES = {  # model → (the JAX artifact whose keys it keeps, those whose stage keys it must hold)
     "small": ("profile_stages_r04.json", ("profile_stages_r03.json", "profile_stages_r04.json",
@@ -4059,11 +4083,13 @@ def measure_profile(device, work: Path) -> dict:
 
 
 def measure_e2e(device, work: Path) -> dict:
-    """bench_atari_e2e_torch.py at its defaults, MEASURE_E2E_GENS timed
-    generations: K1 and K2 launch (K2 once a generation, the warm-up's
-    included) and the phases sum to ``s_per_generation``."""
+    """bench_atari_e2e_torch.py at its defaults but MEASURE_E2E_CUTOFF,
+    MEASURE_E2E_GENS timed generations: K1 and K2 launch (K2 once a
+    generation, the warm-up's included) and the phases sum to
+    ``s_per_generation``."""
     mod = campaign_script("bench_atari_e2e_torch")
-    argv = ["--gens", str(MEASURE_E2E_GENS), "--out", str(work / "bench_e2e_torch.json"), "--device", str(device)]
+    argv = ["--gens", str(MEASURE_E2E_GENS), "--cutoff", str(MEASURE_E2E_CUTOFF), "--out",
+            str(work / "bench_e2e_torch.json"), "--device", str(device)]
     zero_counters()
     art, seconds = synced_seconds(lambda: mod.main(argv))
     launches = read_counters()
@@ -4172,6 +4198,150 @@ def run_measurement_scripts(device) -> dict:
         out["profile"]["large"].pop("path")
         out.update(scaling=measure_scaling(device, work), launcher=measure_launcher(work))
     return out
+
+
+# phase 35: the Humanoid campaign scripts (scripts/*humanoid*_torch.py) at their defaults
+HUMANOID_CURVE_GENERATIONS = 3  # straight through; 2 and a resumed 1 against it
+HUMANOID_ARM_GENERATIONS = 2
+HUMANOID_SCRIPT_POP, HUMANOID_SCRIPT_SLOTS = 128, 32  # both scripts' defaults
+
+
+@contextlib.contextmanager
+def script_physics(curve, arms):
+    """The physics the campaign scripts run on: "mujoco" where gymnasium
+    and mujoco import, else "stand-in": each script's env function swapped
+    whole for ``StandInHumanoid`` while the context is open (the stand-in
+    has no XML world, and ``deceptive_humanoid_xml`` needs gymnasium)."""
+    from deep_neuroevolution_torch.envs import mujoco
+
+    if mujoco.is_available():
+        yield "mujoco"
+        return
+    real = curve.make_env, arms._mk_env
+    curve.make_env = lambda batch_size: StandInHumanoid(batch_size=batch_size)
+    arms._mk_env = lambda batch_size, trap_distance, seed_base: StandInHumanoid(batch_size=batch_size)
+    try:
+        yield "stand-in"
+    finally:
+        curve.make_env, arms._mk_env = real
+
+
+def k2_script_calls(seen: list, table, dim: int, pairs: list, by_pairs: dict) -> list:
+    """Every recorded K2 call of a script against its plain version; the
+    pairs of each call must be ``pairs``' in order, counted into
+    ``by_pairs``."""
+    got = [int(i.shape[0]) for i, _ in seen]
+    require(got == pairs, f"humanoid scripts: K2 pairs {got}, want {pairs}")
+    for B in got:
+        by_pairs[B] = by_pairs.get(B, 0) + 1
+    return [check_k2(table, idx, w, dim) for idx, w in seen]
+
+
+def gen_rates(seconds: list, lengths: list, episodes: int) -> dict:
+    """Seconds a generation and env steps/s (the rollouts' steps, eval
+    episodes in the time but not the count)."""
+    return dict(s_per_gen=seconds, env_steps_per_s=[episodes * n / s for n, s in zip(lengths, seconds)])
+
+
+def run_humanoid_scripts(device, l2_rate: float, smi: str) -> dict:
+    """Phase 35 (see the module docstring)."""
+    import torch
+
+    from deep_neuroevolution_torch.utils import checkpoint
+
+    curve, arms = campaign_script("humanoid_curve_torch"), campaign_script("run_humanoid_nses_torch")
+    asm = campaign_script("assemble_humanoid_r05_torch")
+    trainers, real_make, by_pairs = [], curve.make_trainer, {}
+
+    def keep(*a, **kw):
+        trainers.append(real_make(*a, **kw))
+        return trainers[-1]
+
+    curve.make_trainer = keep
+    pop, slots, G = HUMANOID_SCRIPT_POP, HUMANOID_SCRIPT_SLOTS, HUMANOID_CURVE_GENERATIONS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_humanoid_") as tmp, script_physics(curve, arms) as physics:
+        work, dev = Path(tmp), str(device)
+        path = work / "humanoid_curve_torch.json"
+        argv = ["--seed_list", "0", "--gens", str(G), "--resume_dir", str(work / "straight"), "--out", str(path),
+                "--device", dev]
+        with record_k2() as seen, record_round() as rec:
+            zero_counters()
+            art, seconds = synced_seconds(lambda: curve.main(argv))
+            launches = read_counters()
+        tr = trainers[0]
+        table, dim = tr.noise.noise, tr.model.num_params
+        print(f"humanoid_scripts: {type(tr.env).__name__} ({physics}) slots={tr.env.batch_size} D={dim} "
+              f"table={table.shape[0]} launches {json.dumps(launches)}", flush=True)
+        require(tr.env.batch_size == slots and dim == 159_505 and table.shape[0] == curve.TABLE_COUNT,
+                "humanoid_curve_torch: not the script's defaults")
+        require(launches["noise_gradient"] == len(seen) == G, f"humanoid_curve_torch: K2 launched "
+                f"{launches['noise_gradient']} times in {G} generations")
+        curve_errs = k2_script_calls(seen, table, dim, [pop // 2] * G, by_pairs)
+        idx64, w64 = seen[-1]
+        actions = check_round_actions(tr.model, rec, device)
+        same_keys(art, "humanoid_curve.json", "humanoid_curve_torch.json", per_run=("seeds",))
+        straight = art["seeds"]["0"]
+
+        resumed_dir = str(work / "resumed")
+        with record_k2() as seen:
+            zero_counters()
+            curve.run_seed(0, G - 1, pop, slots, 1000, 0.01, resume_dir=resumed_dir, device=device)
+            resumed = curve.run_seed(0, G, pop, slots, 1000, 0.01, resume_dir=resumed_dir, device=device)
+            resume_launches = read_counters()
+        require(resume_launches["noise_gradient"] == G, "humanoid_curve_torch: K2 not once a resumed generation")
+        resume_errs = k2_script_calls(seen, table, dim, [pop // 2] * G, by_pairs)
+        for k in ("curve", "eval_curve", "ep_len", "ob_counts", "timesteps", "obstat_fraction"):
+            require(resumed[k] == straight[k], f"humanoid_curve_torch: resumed {k} {resumed[k]} != {straight[k]}")
+        thetas = [checkpoint.load_pickle(str(work / d / "seed0.ckpt"))["es"]["theta"] for d in ("straight", "resumed")]
+        require(np.array_equal(*thetas) and bool(np.isfinite(thetas[0]).all()),
+                "humanoid_curve_torch: resumed θ is not the straight run's")
+        require(all(math.isfinite(x) for x in straight["curve"]), "humanoid_curve_torch: curve not finite")
+
+        out_asm = work / "humanoid_curve_seeds_torch.json"
+        res = asm.main(["--curve", str(path), "--resume_dir", str(work / "straight"), "--out", str(out_asm),
+                        "--long_run", str(work / "no_long_run.json"), "--long_out", str(work / "long_torch.json"),
+                        "--device", dev])
+        same_keys(json.loads(out_asm.read_text()), "humanoid_curve_pop512_3seeds.json",
+                  "humanoid_curve_seeds_torch.json", per_run=("seeds",))
+        require(list(res["seeds"]) == ["0"] and res["seeds"]["0"]["curve"] == straight["curve"],
+                "assemble_humanoid_r05_torch: not the curve just written")
+
+        ns_path = work / "humanoid_nses_torch.json"
+        argv = ["--gens", str(HUMANOID_ARM_GENERATIONS), "--resume_dir", str(work / "arms"), "--out", str(ns_path),
+                "--device", dev]
+        with record_k2() as seen:
+            zero_counters()
+            ns_art, ns_seconds = synced_seconds(lambda: arms.main(argv))
+            ns_launches = read_counters()
+        A, ns_pairs = HUMANOID_ARM_GENERATIONS, slots // 2  # NS-ES: one round of the slots a generation
+        require(ns_launches["noise_gradient"] == len(seen) == 2 * A, "run_humanoid_nses_torch: K2 not once a generation")
+        ns_errs = k2_script_calls(seen, table, dim, [pop // 2] * A + [ns_pairs] * A, by_pairs)
+        idx16, w16 = seen[-1]
+        same_keys(ns_art, "humanoid_nses.json", "humanoid_nses_torch.json")
+        es_theta = checkpoint.load_pickle(str(work / "arms" / "es.ckpt"))["es"]["theta"]
+        ns_state = checkpoint.load_pickle(str(work / "arms" / "nses.ckpt"))["nses"]
+        require(bool(np.isfinite(es_theta).all()) and all(bool(np.isfinite(p[0]).all()) for p in ns_state["parents"]),
+                "run_humanoid_nses_torch: θ not finite")
+        require(len(ns_art["nses"]["archive_points"]) == 3 + A, "run_humanoid_nses_torch: archive not 3 + generations")
+
+    stats = dict(
+        physics=physics, card=smi, curve_seconds=seconds, arms_seconds=ns_seconds,
+        curve=gen_rates(straight["s_per_gen"], straight["ep_len"], pop),
+        es_arm=gen_rates(ns_art["es"]["history"]["s_per_gen"], ns_art["es"]["history"]["mean_len"], pop),
+        nses_arm=gen_rates(ns_art["nses"]["history"]["s_per_gen"], ns_art["nses"]["history"]["mean_len"],
+                           2 * ns_pairs),
+        path_check_only=dict(curve=straight["curve"], es_arm=ns_art["es"]["history"]["mean_ret"],
+                             nses_arm=ns_art["nses"]["history"]["mean_ret"],
+                             archive_x_max=ns_art["nses"]["archive_x_max"]),
+        actions=actions, k2_max_abs_err=max(curve_errs + resume_errs + ns_errs),
+    )
+    print("humanoid_scripts " + json.dumps(stats), flush=True)
+    rows = {B: k2_case(device, table, i, w, dim, l2_rate) for B, (i, w) in
+            ((pop // 2, (idx64, w64)), (ns_pairs, (idx16, w16)))}
+    trainers.clear()
+    torch.cuda.empty_cache()
+    return dict(stats=stats, launches=dict(curve=launches, curve_resumed=resume_launches, arms=ns_launches),
+                launches_by_pairs=by_pairs, k2=rows)
 
 
 def main() -> int:
@@ -4465,6 +4635,8 @@ def main() -> int:
     with Phase("the measurement scripts: stage profile, e2e phases, engine and upload, scaling, local launcher"):
         measure = run_measurement_scripts(device)
     torch.cuda.empty_cache()
+    with Phase("the Humanoid campaign scripts: ES curve straight and resumed, ES against NS-ES, the r5 assembler"):
+        hum_scripts = run_humanoid_scripts(device, k2["l2_bytes_per_s"], smi)
     for key, run in (("humanoid_es", humanoid), ("humanoid_nses", humanoid_ns)):
         device_paths[key] = dict(k2_path_row(run["launches"], run["k2"]), physics=run["stats"]["physics"])
     device_paths["pod1_maze_es"] = dict(launches=pod_one["es"]["launches"]["noise_gradient"], B=256, D=498)
@@ -4523,6 +4695,13 @@ def main() -> int:
                                              hostpod_launches_by_rank=[x["noise_gradient"] for x in
                                                                        scaling["hostpod_launches_by_rank"]]))
     pod_k3["measure_profile_large"] = dict(launches=prof_large["large_dqn_fused_scores"])
+    # phase 35: K2 once a generation in each Humanoid script, at each script's shape
+    device_paths["humanoid_scripts"] = dict(
+        launches=sum(v["noise_gradient"] for v in hum_scripts["launches"].values()),
+        launches_by_script={k: v["noise_gradient"] for k, v in hum_scripts["launches"].items()},
+        physics=hum_scripts["stats"]["physics"],
+        shapes={f"{B}_pairs": k2_path_row({"noise_gradient": hum_scripts["launches_by_pairs"][B]}, r)
+                for B, r in hum_scripts["k2"].items()})
     ns_k1.update(race_path("population_linear"))
     pod_k3.update(race_path("large_dqn_fused_scores"))
 
