@@ -76,7 +76,6 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..models.core import Model
@@ -86,6 +85,7 @@ from ..ops.noise import NoiseTable, VirtualNoise
 from ..ops.noise_gradient import noise_gradient
 from ..utils import tabular as tlogger
 from ..utils import vine
+from ..utils.trace import span
 from .rollout import collect_ref_batch, index_state, paired_reset, rollout_batch
 from .rollout_host import collect_ref_batch_host, rollout_host
 
@@ -302,7 +302,7 @@ class ESTrainer:
         it. Returns (idxs, the engine's RolloutResult over every slot)."""
         idxs, seed = draws if draws is not None else self._draw_round(npairs)
         thetas = self._perturbed(idxs)
-        with record_function("es.ref_stats"):
+        with span("es.ref_stats"):
             thetas, stats = self._host_params(thetas, True, seed)
         B, valid = self.env.batch_size, None
         if 2 * npairs < B:
@@ -311,7 +311,7 @@ class ESTrainer:
             if self.model.needs_ref_batch:
                 stats = type(stats)(*(tuple(torch.cat([x, x[-1:].expand(pad, -1)]) for x in f) for f in stats))
             valid = np.arange(B) < 2 * npairs
-        with record_function("es.rollout"):
+        with span("es.rollout"):
             res = rollout_host(
                 self.env, self.model.make_batch_act(), (thetas, stats), seed, int(self.cutoff.tslimit), self.device,
                 collect_bc_traj=collect_bc_traj, mirror_pairs=npairs if self.config.mirror_crn else 0,
@@ -362,12 +362,12 @@ class ESTrainer:
         idxs, seed = draws if draws is not None else self._draw_round(npairs)
         state, gen = self._episode_starts(seed, npairs, paired=True)
         thetas = self._perturbed(idxs)
-        with record_function("es.ref_stats"):
+        with span("es.ref_stats"):
             params = self._device_params(thetas, self._model_ctx(True, gen, paired=True))
         mask = None
         if obstat_prob is not None:  # each rollout joins with probability p (es.py:356-363)
             mask = (torch.rand(2 * npairs, generator=gen, device=gen.device) < obstat_prob).to(torch.float32)
-        with record_function("es.rollout"):
+        with span("es.rollout"):
             res = rollout_batch(
                 self.env, self.model.make_batch_act(), params, state, int(self.cutoff.tslimit), True, mask
             )
@@ -449,12 +449,12 @@ class ESTrainer:
         noise_idxs = torch.cat([r[0] for r in rounds])
         returns_n2, srets_n2, lengths_n2, bc_n2, seeds_n2 = (np.concatenate([r[i] for r in rounds])
                                                              for i in range(1, 6))
-        with record_function("es.update"):
+        with span("es.update"):
             g, opt_state, theta, ratio = self._compute_update(noise_idxs, returns_n2, srets_n2)
         gnorm = float(torch.sum(g * g))
         eval_rets, eval_lens, eval_bc = np.zeros(0, np.float32), np.zeros(0, np.int32), None
         if eval_seed is not None:
-            with record_function("es.eval"):
+            with span("es.eval"):
                 eval_rets, eval_lens, eval_bc = self._host_eval(eval_seed)  # θ before the update
         ob_count = self._merge_ob_sums(rounds)
         return self._finalize_generation(
@@ -525,11 +525,11 @@ class ESTrainer:
         # a round's rollout seed, or a seed a pair (a pod's rounds)
         seeds_n2 = np.concatenate([np.broadcast_to(np.asarray(r[8], np.int64), (r[0].shape[0],)) for r in rounds])
         seeds_n2 = seeds_n2[:, None].repeat(2, axis=1)
-        with record_function("es.update"):
+        with span("es.update"):
             g, opt_state, theta, ratio = self._compute_update(idxs, rets, srets)
         eval_rets = eval_lens = eval_bc = torch.zeros(0, device=self.device)
         if eval_seed is not None:
-            with record_function("es.eval"):
+            with span("es.eval"):
                 eval_rets, eval_lens, eval_bc = self._device_eval(eval_seed)  # θ before the update
         gnorm = torch.sum(g * g)
         rets, lens, bcs, eval_rets, eval_lens, eval_bc, gnorm, ratio, count = (

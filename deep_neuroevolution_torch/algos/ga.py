@@ -57,7 +57,6 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..models.core import Model
@@ -65,6 +64,7 @@ from ..ops import genome, schedules
 from ..ops.noise import NoiseTable, noise_rows
 from ..utils import tabular as tlogger
 from ..utils import vine
+from ..utils.trace import span
 from .es import parse_cutoff, update_cutoff
 from .rollout import collect_ref_batch, rollout_batch
 from .rollout_host import collect_ref_batch_host, rollout_host
@@ -308,9 +308,9 @@ class GATrainer:
         outs = []
         for _ in range(-(-n // chunk)):
             pidx, midx = self._draw_offspring(chunk, n_parents)
-            with record_function("ga.offspring"):
+            with span("ga.offspring"):
                 thetas = self._offspring_thetas(pidx, midx, power, randomize)
-            with record_function("ga.rollout"):
+            with span("ga.rollout"):
                 outs.append((pidx, midx) + tuple(self._eval(thetas, self.cutoff.tslimit)))
             del thetas
         return tuple(_gather(x)[:n] for x in zip(*outs))
@@ -359,7 +359,7 @@ class GATrainer:
                 validation_population = [st.elite] + validation_population[:-1]
 
         val_timesteps = 0
-        with record_function("ga.ladder"):
+        with span("ga.ladder"):
             if cfg.validation_threshold > 0 and cfg.num_validation_episodes > 0:
                 vthetas = torch.stack([self._lookup_theta(o.seeds) for o in validation_population])
                 vrets, vlens, _ = self._eval_chunked(vthetas, self.cutoff.tslimit, cfg.num_validation_episodes)

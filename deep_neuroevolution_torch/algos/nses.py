@@ -54,11 +54,11 @@ from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.mlp import MLPContext
 from ..ops import fitness, novelty, obstat
 from ..utils import tabular as tlogger
+from ..utils.trace import span
 from .es import ESConfig, ESTrainer, pair_columns, update_cutoff
 from .rollout import rollout_batch
 from .rollout_host import rollout_host
@@ -217,11 +217,11 @@ class NSESTrainer(ESTrainer):
             idxs, rets, _, lens, bcs, ob_sum, ob_sumsq, ob_count, _ = self._device_round(npairs, obstat_prob, draws)
             if not (self.model.needs_ob_stat and cfg.calc_obstat_prob > 0):
                 ob_count = 0.0  # nothing is collected (the JAX package's collect_obstat)
-            with record_function("nses.novelty"):
+            with span("nses.novelty"):
                 nov = novelty.novelty_vs_archive(self.archive, bcs.reshape(2 * npairs, -1), cfg.k)
             return idxs, rets, nov.reshape(npairs, 2), lens, bcs, ob_sum, ob_sumsq, ob_count
         idxs, res = self._host_rollout(npairs, collect_bc_traj=self.traj_bc, draws=draws)
-        with record_function("nses.novelty"):
+        with span("nses.novelty"):
             if self.traj_bc:
                 bcs = res.bc_traj[: 2 * npairs]
                 nov = self._archive_novelty(bcs)
@@ -240,9 +240,9 @@ class NSESTrainer(ESTrainer):
         self._load(p)
         step_tstart = time.time()
         npairs = self._npairs_round()
-        with record_function("nses.rollout"):
+        with span("nses.rollout"):
             idxs, rets, nov, lens, bcs, ob_sum, ob_sumsq, ob_count = self._perturbed_eval(npairs)
-        with record_function("es.update"):
+        with span("es.update"):
             g, opt_state, theta, ratio = self._compute_update(idxs, rets, nov)
         gnorm = float(torch.sum(g * g))
         returns_n2, novelty_n2, lengths_n2, ratio, ob_count = (
@@ -261,7 +261,7 @@ class NSESTrainer(ESTrainer):
         # on a device env without obs stats, every parent's mean BC comes
         # from one rollout and serves the selection below too
         bcs_m = None
-        with record_function("nses.mean_bc"):
+        with span("nses.mean_bc"):
             if not self.is_host_env and not self.model.needs_ob_stat:
                 bcs_m = self._device_mean_bcs(torch.stack([par.theta for par in self.parents]), None)
                 new_bc = bcs_m[p]
@@ -276,9 +276,9 @@ class NSESTrainer(ESTrainer):
 
         probs = None
         if cfg.selection_method == "novelty_prob":  # nses.py:293-306
-            with record_function("nses.mean_bc"):
+            with span("nses.mean_bc"):
                 bcs_sel = bcs_m if bcs_m is not None else [self._mean_bc(q) for q in range(len(self.parents))]
-            with record_function("nses.novelty"):
+            with span("nses.novelty"):
                 novs = self._archive_novelty(bcs_sel)
             probs = novs / novs.sum()
             self.curr_parent = int(np.random.default_rng(self._draw_seed()).choice(len(self.parents), p=probs))

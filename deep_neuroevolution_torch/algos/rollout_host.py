@@ -55,6 +55,13 @@ vector rollout syncs the device around its upload, forward and engine
 step and adds their seconds there (a measurement harness sets it; a run
 does not pay for the syncs).
 
+Spans (utils/trace.py), recorded only while a profiler runs: each group's
+step of ``rollout_host_batch`` is ``rollout.wait_actions``,
+``rollout.engine`` and ``rollout.queue_forward``, the last holding the
+preprocessing's ``preprocess.*`` and the forward's ``model.*`` spans;
+each step of ``rollout_host_vec`` is ``rollout.upload``,
+``rollout.forward`` and ``rollout.engine``.
+
 Not ported: overlap through a second CUDA stream.
 """
 
@@ -66,9 +73,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..envs.preprocess import preprocess_obs, stack_reset, stack_step
+from ..utils.trace import span
 
 
 class RolloutResult(NamedTuple):
@@ -187,7 +194,7 @@ def rollout_host_batch(
             galive = ~done[sls[g]]
             if not galive.any():
                 continue
-            with record_function("rollout.wait_actions"):
+            with span("rollout.wait_actions"):
                 acts = actions_dev[g].cpu().numpy()  # waits for this group only
             alive_idx = gidx[g][galive]
             if collect_obstat:  # the stacks this step's actions came from
@@ -196,11 +203,11 @@ def rollout_host_batch(
                 ob_sum += s_np[gmask].sum(axis=0)
                 ob_sumsq += np.square(s_np[gmask]).sum(axis=0)
                 ob_count += float(gmask.sum())
-            with record_function("rollout.engine"):
+            with span("rollout.engine"):
                 r_sub, d_sub = henv.step(acts[galive], indices=alive_idx)
                 frames_g = henv.observe(indices=gidx[g])
             # queued on the device; the next group's engine step overlaps it
-            with record_function("rollout.queue_forward"):
+            with span("rollout.queue_forward"):
                 stacks[g] = stack_step(stacks[g], _obs(henv, frames_g, device))
                 actions_dev[g] = act_fn(params_g[g], stacks[g])
             ret[alive_idx] += r_sub
@@ -295,9 +302,9 @@ def rollout_host_vec(
     obs = henv.observe()[:B]
     t = 0
     while not done.all() and t < tslimit:
-        with record_function("rollout.upload"), _timed("upload", device):
+        with span("rollout.upload"), _timed("upload", device):
             obs_dev = torch.from_numpy(obs).to(device)  # a synchronous copy: the engine rewrites obs next step
-        with record_function("rollout.forward"), _timed("forward", device):
+        with span("rollout.forward"), _timed("forward", device):
             actions = act_fn(params, obs_dev).cpu().numpy()  # the only wait for the device
         alive_idx = np.nonzero(~done)[0].astype(np.int32)
         if collect_obstat:  # the raw observations the slots acted on (policies.py:279-281)
@@ -305,7 +312,7 @@ def rollout_host_vec(
             ob_sum += obs[oidx].sum(axis=0)
             ob_sumsq += np.square(obs[oidx]).sum(axis=0)
             ob_count += float(oidx.size)
-        with record_function("rollout.engine"), _timed("env_step", device):
+        with span("rollout.engine"), _timed("env_step", device):
             r_sub, d_sub = henv.step(actions[alive_idx], indices=alive_idx)
             obs = henv.observe()[:B]
         ret[alive_idx] += r_sub

@@ -20,6 +20,9 @@ engine do 1-3 and round to uint8, and the device only scales
 (``scale_preproc_frames``). Each uint8 rounding moves a pixel by at most
 0.5/255.
 
+Steps 1-3 run in the span ``preprocess.frames``, step 4 in
+``preprocess.stack`` (utils/trace.py: recorded only while a profiler runs).
+
 The palette constants are Atari 2600 NTSC hardware data (tf_atari.py:107-141).
 """
 
@@ -29,6 +32,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..utils.trace import span
 
 # NTSC→RGB palette, 128 colors interleaved with zeros to 256 entries
 # (tf_atari.py:107-141; Atari 2600 hardware palette data)
@@ -140,21 +145,24 @@ def scale_preproc_frames(frames: torch.Tensor) -> torch.Tensor:
 def preprocess_obs(frames: torch.Tensor, mode: str, out_h: int = 84, out_w: int = 84) -> torch.Tensor:
     """The device's part for an engine ``obs_mode`` (see the module
     docstring): one observation ``[B, out_h, out_w, 1]`` float32."""
-    if mode == "preproc":
-        return scale_preproc_frames(frames)
-    if mode == "gray":
-        return preprocess_gray_frames(frames, out_h, out_w)
-    if mode == "indexed":
-        return preprocess_frames(frames, out_h, out_w)
+    with span("preprocess.frames"):
+        if mode == "preproc":
+            return scale_preproc_frames(frames)
+        if mode == "gray":
+            return preprocess_gray_frames(frames, out_h, out_w)
+        if mode == "indexed":
+            return preprocess_frames(frames, out_h, out_w)
     raise ValueError(f"unknown obs_mode {mode!r} (gray|indexed|preproc)")
 
 
 def stack_reset(frame: torch.Tensor, num_stack: int = 4) -> torch.Tensor:
     """Zero history plus the first frame in the last channel slot."""
-    zeros = frame.new_zeros(frame.shape[:-1] + (num_stack - 1,))
-    return torch.cat([zeros, frame], dim=-1)
+    with span("preprocess.stack"):
+        zeros = frame.new_zeros(frame.shape[:-1] + (num_stack - 1,))
+        return torch.cat([zeros, frame], dim=-1)
 
 
 def stack_step(stack: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
     """Shift left and append the new frame."""
-    return torch.cat([stack[..., 1:], frame], dim=-1)
+    with span("preprocess.stack"):
+        return torch.cat([stack[..., 1:], frame], dim=-1)

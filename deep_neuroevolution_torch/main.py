@@ -45,7 +45,7 @@ trainer's own generation count, which a resumed run carries on; the
 trainer snapshot is written once more at the end. ``--exp_str`` takes the
 experiment as JSON instead of ``--exp_file``. ``--profile_dir`` traces the
 last generation with ``torch.profiler`` (with ``--iterations 0``, the
-first).
+first); the program's spans (utils/trace.py) are recorded only then.
 
 Several cards (the JAX package's pod launch, main.py:49): start one
 process per card with torchrun; each rank runs the same command, the
@@ -191,9 +191,9 @@ def save_snapshots(trainer, log_dir: str, stats):
 
 def profile_generation(trainer, out_dir: str):
     """One generation under ``torch.profiler``: writes ``trace.json.gz`` (the
-    timeline) and ``summary.txt`` (time by span and kernel, and the share
-    of the generation's wall time the device ran kernels or copies).
-    Returns the generation's stats."""
+    timeline, with the program's spans: utils/trace.py) and ``summary.txt``
+    (time by span and kernel, and the share of the generation's wall time
+    the device ran kernels or copies). Returns the generation's stats."""
     import time
 
     import torch
@@ -210,7 +210,7 @@ def profile_generation(trainer, out_dir: str):
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json.gz"))
     events = prof.key_averages()
-    # kernels and copies; spans of record_function also show on the device
+    # kernels and copies; the program's spans also show on the device
     # timeline and are left out, as the profiler's own table does
     device_us = sum(
         e.self_device_time_total for e in events
@@ -272,7 +272,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--overrides", help='JSON, e.g. \'{"game": "toy", "population_size": 512}\'')
     t.add_argument("--device", default=None, help="cuda (default) or cpu")
-    t.add_argument("--profile_dir", default="", help="torch.profiler trace of the last generation → this dir")
+    t.add_argument("--profile_dir", default="",
+                   help="torch.profiler trace of the last generation → this dir (the program's spans are "
+                        "recorded only while the profiler runs)")
     t.set_defaults(fn=cmd_train)
 
     r = sub.add_parser("replay", help="roll out a policy file or a seed-chain elite (scripts/viz.py, display.py)")

@@ -61,7 +61,8 @@ import torch.nn.functional as F
 
 from ..ops import fused_dqn as fk
 from ..ops.flat import ParamSpec
-from .core import NONLINS, Model, batch_conv2d, extract_patches, pop_matvec
+from ..utils.trace import span
+from .core import NONLINS, Model, argmax_actions, batch_conv2d, extract_patches, pop_matvec
 
 VBN_EPS = 1e-3  # batchnorm.py:76; policies.py:322 epsilon=1e-3
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -216,14 +217,17 @@ class VirtualBNDQN(Model):
         dt = self.dtype
         nonlin = NONLINS[self.nonlin_type]
         B = obs.shape[0]
-        x = obs.to(dt)
-        for i, (name, _, _, s) in enumerate(self.LAYERS):
-            h = batch_conv2d(parts[f"{name}/w"], x, stride=s)
-            x = nonlin(self._normalize(parts, name, h, ctx.mean[i], ctx.inv_std[i])).to(dt)
-        h = pop_matvec(x.reshape(B, -1), parts["fc/w"])
-        i = len(self.LAYERS)
-        x = nonlin(self._normalize(parts, "fc", h, ctx.mean[i], ctx.inv_std[i]))
-        return torch.einsum("bk,bkn->bn", x, parts["out/w"].float()) + parts["out/b"]
+        with span("model.convs"):
+            x = obs.to(dt)
+            for i, (name, _, _, s) in enumerate(self.LAYERS):
+                h = batch_conv2d(parts[f"{name}/w"], x, stride=s)
+                x = nonlin(self._normalize(parts, name, h, ctx.mean[i], ctx.inv_std[i])).to(dt)
+        with span("model.fc"):
+            h = pop_matvec(x.reshape(B, -1), parts["fc/w"])
+            i = len(self.LAYERS)
+            x = nonlin(self._normalize(parts, "fc", h, ctx.mean[i], ctx.inv_std[i]))
+        with span("model.out"):
+            return torch.einsum("bk,bkn->bn", x, parts["out/w"].float()) + parts["out/b"]
 
     # ------------------------------------------------------------- routes
 
@@ -279,12 +283,15 @@ class VirtualBNDQN(Model):
         dt = self.dtype
         nonlin = NONLINS[self.nonlin_type]
         B = obs.shape[0]
-        x = obs.to(dt)
-        for name, _, _, s in self.LAYERS:
-            h = batch_conv2d(fparts[f"{name}/w"], x, stride=s)
-            x = nonlin(h + fparts[f"{name}/b"][:, None, None, :]).to(dt)
-        x = nonlin(pop_matvec(x.reshape(B, -1), fparts["fc/w"]) + fparts["fc/b"])
-        return torch.einsum("bk,bkn->bn", x, fparts["out/w"].float()) + fparts["out/b"]
+        with span("model.convs"):
+            x = obs.to(dt)
+            for name, _, _, s in self.LAYERS:
+                h = batch_conv2d(fparts[f"{name}/w"], x, stride=s)
+                x = nonlin(h + fparts[f"{name}/b"][:, None, None, :]).to(dt)
+        with span("model.fc"):
+            x = nonlin(pop_matvec(x.reshape(B, -1), fparts["fc/w"]) + fparts["fc/b"])
+        with span("model.out"):
+            return torch.einsum("bk,bkn->bn", x, fparts["out/w"].float()) + fparts["out/b"]
 
     def fuse_prepare(self, parts, stats: VBNStats, style: str = "two") -> Dict[str, torch.Tensor]:
         """K4's (``style='one'``) or K6's (``'two'``) layout from parts
@@ -320,11 +327,13 @@ class VirtualBNDQN(Model):
         """Padded scores ``[B, 64]`` from K4 (a ``wf_cm`` entry) or K6; conv1's
         im2col (bf16) runs outside the kernel (batchnorm.py:351-364)."""
         B = obs.shape[0]
-        patches1 = extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, fk.P1, fk.KK1)
+        with span("model.convs"):
+            patches1 = extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, fk.P1, fk.KK1)
         ops = dict(fused_ops, patches1=patches1)
-        if "wf_cm" in fused_ops:
-            return fk.vbn_dqn_fused1_scores(ops)
-        return fk.vbn_dqn_fused_scores(ops)
+        with span("model.fused"):
+            if "wf_cm" in fused_ops:
+                return fk.vbn_dqn_fused1_scores(ops)
+            return fk.vbn_dqn_fused_scores(ops)
 
     def prepare_batch_params(self, params):
         """``(thetas [B, D], stats)`` → prepared ``(parts, stats)``, once per
@@ -348,10 +357,10 @@ class VirtualBNDQN(Model):
 
     def batch_act_parts(self, parts, obs, ctx):
         if "__fused__" in parts:
-            return torch.argmax(self.batch_scores_fused(parts["__fused__"], obs), dim=-1)
+            return argmax_actions(self.batch_scores_fused(parts["__fused__"], obs))
         if "__folded__" in parts:
-            return torch.argmax(self.batch_scores_folded(parts["__folded__"], obs), dim=-1)
-        return torch.argmax(self.batch_scores_parts(parts, obs, ctx), dim=-1)
+            return argmax_actions(self.batch_scores_folded(parts["__folded__"], obs))
+        return argmax_actions(self.batch_scores_parts(parts, obs, ctx))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -374,12 +383,15 @@ class BNDQN(VirtualBNDQN):
         member normalized by its own moments."""
         nonlin = NONLINS[self.nonlin_type]
         B = obs.shape[0]
-        x = obs.float()
-        for name, _, _, s in self.LAYERS:
-            h = batch_conv2d(parts[f"{name}/w"], x, stride=s)
-            mean, inv = _moments(h, (1, 2))
-            x = nonlin(self._normalize(parts, name, h, mean, inv))
-        h = torch.bmm(x.reshape(B, 1, -1), parts["fc/w"].float())[:, 0]
-        mean, inv = _moments(h, 1)  # a batch of one: the layer centred by itself
-        x = nonlin(self._normalize(parts, "fc", h, mean[:, None].expand_as(h), inv[:, None].expand_as(h)))
-        return torch.bmm(x[:, None, :], parts["out/w"].float())[:, 0] + parts["out/b"]
+        with span("model.convs"):
+            x = obs.float()
+            for name, _, _, s in self.LAYERS:
+                h = batch_conv2d(parts[f"{name}/w"], x, stride=s)
+                mean, inv = _moments(h, (1, 2))
+                x = nonlin(self._normalize(parts, name, h, mean, inv))
+        with span("model.fc"):
+            h = torch.bmm(x.reshape(B, 1, -1), parts["fc/w"].float())[:, 0]
+            mean, inv = _moments(h, 1)  # a batch of one: the layer centred by itself
+            x = nonlin(self._normalize(parts, "fc", h, mean[:, None].expand_as(h), inv[:, None].expand_as(h)))
+        with span("model.out"):
+            return torch.bmm(x[:, None, :], parts["out/w"].float())[:, 0] + parts["out/b"]

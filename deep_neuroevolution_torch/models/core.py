@@ -11,6 +11,13 @@ the fc layer, which holds most of the weight bytes, goes through
 ``pop_matvec`` (kernel K1 on a CUDA tensor). The MLPs' layers go through
 ``dense``, a batched product on the library (the JAX package lowers its
 ``jax.vmap`` of ``x @ w`` to a batched GEMM outside any Pallas kernel).
+
+The DQN models mark the layers of their population forward with spans
+(utils/trace.py, recorded only while a profiler runs): ``model.convs``
+(the convs outside a whole-net kernel, im2col included), ``model.fc``
+(the fc outside one: ``pop_matvec`` with its bias or normalization and
+nonlinearity), ``model.fused`` (the call of a whole-net kernel) and
+``model.out`` (the out layer, and the argmax of ``argmax_actions``).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from ..ops import flat
 from ..ops.flat import ParamSpec
 from ..ops.population_linear import population_linear
+from ..utils.trace import span
 
 
 def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -64,6 +72,13 @@ def pop_matvec(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     population's fc layer. Kernel K1 on a CUDA tensor, its plain version on
     a CPU tensor (ops/population_linear.py)."""
     return population_linear(x, W)
+
+
+def argmax_actions(scores: torch.Tensor) -> torch.Tensor:
+    """Each member's action: the argmax of its scores ``[B, A]``, in the out
+    layer's span."""
+    with span("model.out"):
+        return torch.argmax(scores, dim=-1)
 
 
 def dense(parts: Dict[str, torch.Tensor], name: str, x: torch.Tensor) -> torch.Tensor:

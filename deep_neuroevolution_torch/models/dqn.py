@@ -52,7 +52,8 @@ import torch.nn.functional as F
 
 from ..ops import fused_dqn as fk
 from ..ops.flat import ParamSpec
-from .core import NONLINS, Model, batch_conv2d, extract_patches, pop_matvec
+from ..utils.trace import span
+from .core import NONLINS, Model, argmax_actions, batch_conv2d, extract_patches, pop_matvec
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -154,12 +155,15 @@ class SmallDQN(Model):
     def batch_scores_parts(self, parts, obs: torch.Tensor, ctx=None) -> torch.Tensor:
         """``[B, in_hw, in_hw, in_ch]`` frames → action scores ``[B, A]`` f32:
         the convs, the fc through ``pop_matvec`` (K1), the out layer in f32."""
-        h = pop_matvec(self.conv_acts(parts, obs), parts["fc/w"]) + parts["fc/b"].float()
-        x = NONLINS[self.nonlin_type](h)
-        return torch.einsum("bk,bkn->bn", x, parts["out/w"].float()) + parts["out/b"].float()
+        with span("model.convs"):
+            x = self.conv_acts(parts, obs)
+        with span("model.fc"):
+            x = NONLINS[self.nonlin_type](pop_matvec(x, parts["fc/w"]) + parts["fc/b"].float())
+        with span("model.out"):
+            return torch.einsum("bk,bkn->bn", x, parts["out/w"].float()) + parts["out/b"].float()
 
     def batch_act_parts(self, parts, obs, ctx=None):
-        return torch.argmax(self.batch_scores_parts(parts, obs, ctx), dim=-1)
+        return argmax_actions(self.batch_scores_parts(parts, obs, ctx))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,12 +245,14 @@ class LargeDQN(SmallDQN):
         """Padded scores ``[B, 64]`` from K3; conv1's im2col (bf16) runs
         outside the kernel."""
         B = obs.shape[0]
-        patches1 = extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, fk.P1, fk.KK1)
-        return fk.large_dqn_fused_scores(dict(fused_ops, patches1=patches1))
+        with span("model.convs"):
+            patches1 = extract_patches(obs.to(torch.bfloat16), 8, 4).reshape(B, fk.P1, fk.KK1)
+        with span("model.fused"):
+            return fk.large_dqn_fused_scores(dict(fused_ops, patches1=patches1))
 
     def batch_act_parts(self, parts, obs, ctx=None):
         if "__fused_lg__" in parts:
-            return torch.argmax(self.batch_scores_fused(parts["__fused_lg__"], obs), dim=-1)
+            return argmax_actions(self.batch_scores_fused(parts["__fused_lg__"], obs))
         return super().batch_act_parts(parts, obs, ctx)
 
 
