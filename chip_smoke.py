@@ -136,6 +136,10 @@ ends:
    uploaded a slot-step (every frame upload counted); K1 and K2 must
    launch in each; the card's preprocessing of each mode's engine frames
    against the CPU's ('preproc' bit for bit, the others within 1e-6);
+   then csrc/preprocess.cu's frames kernel (both modes) and stack push
+   against their plain chains at B=2500, 500 and 4 (the frames within two
+   ulps at 1.0, the stack bit for bit), each timed back-to-back and in a
+   CUDA graph beside its bytes bound and the plain chain's graph time;
 23. the threefry noise sources: VirtualNoise rows on the card against the
    CPU's (the words equal, the normals within 1e-6); the 250M-float
    ``noise: device`` table built on the card (its seconds beside phase
@@ -2167,8 +2171,9 @@ def run_obs_modes(device) -> dict:
     frames/s, the bytes uploaded a slot-step (every ``_frames_to`` call's
     bytes over its rows); K1 and K2 must launch in each. Then the card's
     preprocessing of each mode's engine frames against the CPU's: 'preproc'
-    bit for bit (one exact scale), 'gray' and 'indexed' within 1e-6 (cuBLAS
-    sums the resize in another order). Returns, by mode, its readings."""
+    bit for bit (one exact scale), 'gray' and 'indexed' within 1e-6 (the
+    card's kernel and the CPU's matmuls sum the resize in other orders).
+    Returns, by mode, its readings."""
     import torch
 
     from deep_neuroevolution_torch.algos import rollout_host
@@ -2222,6 +2227,60 @@ def run_obs_modes(device) -> dict:
         for tr in trainers.values():
             tr.close()
     return runs
+
+
+# the preprocessing kernels at the benchmark cells' groups (2500 VBN-DQN and
+# 500 LargeDQN members) and at an eval-episode group's 4
+PREPROCESS_BATCHES = (2500, 500, 4)
+PREPROCESS_ULP2 = 2.4e-7  # two float32 ulps at 1.0: the kernel's resize sums against cuBLAS's
+
+
+def check_preprocess_kernels(device) -> list:
+    """csrc/preprocess.cu's two kernels against their plain chains at each
+    B of ``PREPROCESS_BATCHES`` (210×160 frame pairs → 84×84, both frame
+    modes; the 4-frame stack push), each launch counted: the frames within
+    ``PREPROCESS_ULP2``, the stack bit for bit. Each is timed back-to-back
+    and in a CUDA graph beside its bytes bound (every input byte read once,
+    every output byte written once) and the plain chain's graph time."""
+    import torch
+
+    from deep_neuroevolution_torch.envs import preprocess as pre
+
+    gen = torch.Generator(device=device).manual_seed(29)
+    rows = []
+    for B in PREPROCESS_BATCHES:
+        frames = torch.randint(0, 256, (B, 2, 210, 160), generator=gen, device=device, dtype=torch.uint8)
+        for mode, plain in (("gray", pre.preprocess_gray_frames), ("indexed", pre.preprocess_frames)):
+            n = pre.frames_kernel.launches
+            obs = pre.preprocess_obs(frames, mode)
+            require(pre.frames_kernel.launches == n + 1, f"preprocess_obs {mode} B={B} did not launch the kernel")
+            err = float((obs - plain(frames, 84, 84)).abs().max())
+            require(err <= PREPROCESS_ULP2, f"frames_kernel {mode} B={B}: max abs err {err} > {PREPROCESS_ULP2}")
+            call = lambda: pre.frames_kernel(frames, mode)  # noqa: E731
+            warm(call, 0.3)
+            bound_ms, bound_by = bound(frames.numel() + obs.numel() * 4, 0, "float32")  # a few FMAs an output
+            row = dict(kernel="frames_kernel", mode=mode, B=B, max_abs_err=err, ms=cuda_ms(call, 20),
+                       graph_ms=graph_ms(call), plain_graph_ms=graph_ms(lambda: plain(frames, 84, 84), calls=5),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            row["bound_over_graph_ms"] = bound_ms / row["graph_ms"]
+            print("preprocess_kernel " + json.dumps(row), flush=True)
+            rows.append(row)
+        stack = torch.rand((B, 84, 84, 4), generator=gen, device=device)
+        n = pre.stack_kernel.launches
+        require(torch.equal(pre.stack_step(stack, obs), pre.stack_step_plain(stack, obs)),
+                f"stack_kernel B={B}: not the cat's stack")
+        require(pre.stack_kernel.launches == n + 1, f"stack_step B={B} did not launch the kernel")
+        call = lambda: pre.stack_kernel(stack, obs)  # noqa: E731
+        warm(call, 0.3)
+        bound_ms, bound_by = bound(2 * stack.numel() * 4 + obs.numel() * 4, 0, "float32")
+        row = dict(kernel="stack_kernel", B=B, max_abs_err=0.0, ms=cuda_ms(call, 20), graph_ms=graph_ms(call),
+                   plain_graph_ms=graph_ms(lambda: pre.stack_step_plain(stack, obs)), bound_ms=bound_ms,
+                   bound_by=bound_by)
+        row["bound_over_graph_ms"] = bound_ms / row["graph_ms"]
+        print("preprocess_kernel " + json.dumps(row), flush=True)
+        rows.append(row)
+        del frames, obs, stack
+    return rows
 
 
 # phase 23: the counter-based and device-built noise sources
@@ -4029,6 +4088,7 @@ PROFILE_STAGE_KERNELS = {  # the one kernel each profile stage runs on the card;
                                          "act_new_bf16_rerun", "act_folded_bf16", "lg_fc_pallas")},
     "act_fused1": "vbn_dqn_fused1_scores", "act_fused": "vbn_dqn_fused_scores",
     "lg_forward": "large_dqn_fused_scores", "lg_forward_fused": "large_dqn_fused_scores",
+    "preprocess": "frames_kernel", "preprocess_gray": "frames_kernel", "lg_stack_update": "stack_kernel",
 }
 
 
@@ -4556,8 +4616,9 @@ def main() -> int:
     del table
     torch.cuda.empty_cache()
 
-    with Phase("ES generations on each obs mode, in turns"):
+    with Phase("ES generations on each obs mode, in turns; the preprocessing kernels"):
         obs_runs = run_obs_modes(device)
+        preprocess_rows = check_preprocess_kernels(device)
     for mode, (first, *_) in obs_runs.items():
         ns_k1[f"es_{mode}"] = dict(launches=first["k1"], by_batch=first["k1_by_batch"])
         device_paths[f"es_{mode}"] = dict(launches=first["k2"], B=first["pairs"], D=first["D"])
@@ -4566,6 +4627,7 @@ def main() -> int:
         **{m: dict(seconds=[r["seconds"] for r in rs], frames_per_s=[r["frames_per_s"] for r in rs],
                    bytes_per_slot_step=rs[0]["bytes_per_slot_step"],
                    preprocess_card_vs_cpu=rs[0]["preprocess_card_vs_cpu"]) for m, rs in obs_runs.items()},
+        preprocess_kernels=preprocess_rows,
     )), flush=True)
     torch.cuda.empty_cache()
 

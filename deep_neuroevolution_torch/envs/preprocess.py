@@ -20,6 +20,18 @@ engine do 1-3 and round to uint8, and the device only scales
 (``scale_preproc_frames``). Each uint8 rounding moves a pixel by at most
 0.5/255.
 
+On a CUDA tensor, 'gray' and 'indexed' run steps 1-3 as one hand-written
+kernel (``frames_kernel``, csrc/preprocess.cu) and ``stack_step`` as
+another (``stack_kernel``); a CPU tensor runs the chains of PyTorch ops
+below (``preprocess_gray_frames``, ``preprocess_frames``,
+``stack_step_plain``), which the CPU tests hold against the JAX package and
+the card tests hold the kernels against. The kernels take the chains'
+numbers: the luminance through the same 256-entry table (for 'gray' the
+chain's own scale of each byte: it never decreases, so the max commutes
+with it), and the resize through the taps of the same interpolation
+matrices (``resize_taps``), summed in the matrices' order. Each wrapper
+counts its launches in ``.launches``.
+
 Steps 1-3 run in the span ``preprocess.frames``, step 4 in
 ``preprocess.stack`` (utils/trace.py: recorded only while a profiler runs).
 
@@ -33,6 +45,7 @@ import functools
 import numpy as np
 import torch
 
+from ..ops import _cuda_build
 from ..utils.trace import span
 
 # NTSC→RGB palette, 128 colors interleaved with zeros to 256 entries
@@ -102,6 +115,23 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
+def resize_taps(in_size: int, out_size: int) -> np.ndarray:
+    """``[out_size, 4]`` int32: each output index's taps (lo, hi) and, as
+    float32 bits, their weights (w_lo, w_hi), read off the nonzeros of
+    ``_interp_matrix(in_size, out_size)``; a row with one nonzero has hi =
+    lo and w_hi = 0. The layout of csrc/preprocess.cu's ``Tap``."""
+    m = _interp_matrix(in_size, out_size)
+    taps = np.zeros((out_size, 4), np.int32)
+    weights = taps.view(np.float32)
+    for i, row in enumerate(m):
+        nz = np.flatnonzero(row)
+        taps[i, :2] = nz[0], nz[-1]
+        weights[i, 2] = row[nz[0]]
+        if len(nz) > 1:
+            weights[i, 3] = row[nz[-1]]
+    return taps
+
+
 @functools.lru_cache(maxsize=None)
 def _resize_matrices(h: int, w: int, out_h: int, out_w: int, device: torch.device):
     R = torch.from_numpy(_interp_matrix(h, out_h)).to(device)  # [oh, H]
@@ -118,6 +148,47 @@ def _resize(gray: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _gray_palette(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(GRAYSCALE_PALETTE).to(device)
+
+
+# each frame mode's luminance of a byte: 'gray' the chain's scale (float32
+# v · float32(1/255)), 'indexed' the palette
+LUMA_TABLES = {
+    "gray": np.arange(256, dtype=np.float32) * np.float32(1.0 / 255.0),
+    "indexed": GRAYSCALE_PALETTE,
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_operands(mode: str, h: int, w: int, out_h: int, out_w: int, device: torch.device):
+    """The frames kernel's table, taps (rows', then columns') and whether
+    the table never decreases, on ``device``."""
+    table = LUMA_TABLES[mode]
+    taps = np.concatenate([resize_taps(h, out_h), resize_taps(w, out_w)])
+    monotone = bool(np.all(np.diff(table) >= 0))
+    return torch.from_numpy(table).to(device), torch.from_numpy(taps).to(device), monotone
+
+
+def frames_kernel(frames: torch.Tensor, mode: str, out_h: int = 84, out_w: int = 84) -> torch.Tensor:
+    """``[B, 2, H, W]`` uint8 frames on a CUDA device → ``[B, out_h, out_w,
+    1]`` float32: steps 1-3 of ``mode`` ('gray' or 'indexed') in one launch
+    of csrc/preprocess.cu. Raises on anything but contiguous uint8 pairs."""
+    if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[1] != 2 or not frames.is_contiguous():
+        raise ValueError(f"frames_kernel needs contiguous uint8 [B, 2, H, W] frames, not {frames.dtype} "
+                         f"{tuple(frames.shape)}")
+    B, _, h, w = frames.shape
+    out = torch.empty((B, out_h, out_w, 1), dtype=torch.float32, device=frames.device)
+    if B == 0:
+        return out
+    lib = _cuda_build.load()
+    table, taps, monotone = _kernel_operands(mode, h, w, out_h, out_w, frames.device)
+    err = lib.nevo_preprocess_frames(frames.data_ptr(), table.data_ptr(), taps.data_ptr(), out.data_ptr(), B, h, w,
+                                     out_h, out_w, int(monotone), _cuda_build.current_stream(frames.device))
+    _cuda_build.check(lib, err, "frames_kernel")
+    frames_kernel.launches += 1
+    return out
+
+
+frames_kernel.launches = 0  # launches since the caller last set it to 0
 
 
 def preprocess_frames(frames: torch.Tensor, out_h: int = 84, out_w: int = 84) -> torch.Tensor:
@@ -148,6 +219,8 @@ def preprocess_obs(frames: torch.Tensor, mode: str, out_h: int = 84, out_w: int 
     with span("preprocess.frames"):
         if mode == "preproc":
             return scale_preproc_frames(frames)
+        if mode in LUMA_TABLES and frames.is_cuda:
+            return frames_kernel(frames, mode, out_h, out_w)
         if mode == "gray":
             return preprocess_gray_frames(frames, out_h, out_w)
         if mode == "indexed":
@@ -162,7 +235,40 @@ def stack_reset(frame: torch.Tensor, num_stack: int = 4) -> torch.Tensor:
         return torch.cat([zeros, frame], dim=-1)
 
 
+def stack_step_plain(stack: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
+    """Shift left and append the new frame, as PyTorch ops."""
+    return torch.cat([stack[..., 1:], frame], dim=-1)
+
+
+def stack_kernel(stack: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
+    """``stack_step_plain`` on a CUDA device in one launch of
+    csrc/preprocess.cu: a new ``[..., n]`` float32 stack. Raises on
+    anything but contiguous float32 ``[..., n]`` and ``[..., 1]`` tensors
+    of the same leading shape."""
+    if (stack.dtype != torch.float32 or frame.dtype != torch.float32 or not stack.is_contiguous()
+            or not frame.is_contiguous() or stack.dim() < 1 or frame.shape != stack.shape[:-1] + (1,)):
+        raise ValueError(f"stack_kernel needs contiguous float32 [..., n] and [..., 1] tensors, not {stack.dtype} "
+                         f"{tuple(stack.shape)} and {frame.dtype} {tuple(frame.shape)}")
+    out = torch.empty_like(stack)
+    n = stack.shape[-1]
+    P = frame.numel()
+    if P == 0:
+        return out
+    lib = _cuda_build.load()
+    err = lib.nevo_stack_push(stack.data_ptr(), frame.data_ptr(), out.data_ptr(), P, n,
+                              _cuda_build.current_stream(stack.device))
+    _cuda_build.check(lib, err, "stack_kernel")
+    stack_kernel.launches += 1
+    return out
+
+
+stack_kernel.launches = 0  # launches since the caller last set it to 0
+
+
 def stack_step(stack: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
-    """Shift left and append the new frame."""
+    """Shift left and append the new frame: ``stack_kernel`` on a CUDA
+    tensor, ``stack_step_plain`` on any other."""
     with span("preprocess.stack"):
-        return torch.cat([stack[..., 1:], frame], dim=-1)
+        if stack.is_cuda:
+            return stack_kernel(stack, frame)
+        return stack_step_plain(stack, frame)

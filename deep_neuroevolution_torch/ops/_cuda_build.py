@@ -136,6 +136,10 @@ def load() -> ctypes.CDLL:
         getattr(lib, name).restype = i32
         getattr(lib, name + "_split").argtypes = [vp] * 15 + [i32, i32, vp]
         getattr(lib, name + "_split").restype = i32
+    lib.nevo_preprocess_frames.argtypes = [vp] * 4 + [i32] * 6 + [vp]
+    lib.nevo_preprocess_frames.restype = i32
+    lib.nevo_stack_push.argtypes = [vp] * 3 + [i64, i32, vp]
+    lib.nevo_stack_push.restype = i32
     lib.nevo_cuda_error_string.argtypes = [i32]
     lib.nevo_cuda_error_string.restype = ctypes.c_char_p
     return lib

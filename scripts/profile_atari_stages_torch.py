@@ -12,8 +12,9 @@ in one CUDA graph and its replays timed with CUDA events; one step costs
                    from an explicit generator registered with each graph
   palette          the 256-entry grayscale table gathered on those frames
   preprocess       palette, 2-frame max and the align-corners resize
-                   (envs/preprocess.py ``preprocess_frames``)
-  preprocess_gray  the same on gray frames (``preprocess_gray_frames``)
+                   (envs/preprocess.py ``preprocess_obs`` 'indexed': the
+                   frames kernel on a card)
+  preprocess_gray  the same on gray frames (``preprocess_obs`` 'gray')
   fc_xla_*         the [B, 3872]·[B, 3872, 256] mat-vec as one ``torch.bmm``
                    (f32, bf16; ``_honest`` with the tanh perturbation)
   fc_pallas_*      the same through kernel K1 (``population_linear``)
@@ -35,9 +36,10 @@ in one CUDA graph and its replays timed with CUDA events; one step costs
   lg_fc_pallas     K1 on [B, 7744]·[B, 7744, 512]; lg_fc_xla ``torch.bmm``
   lg_forward       ``LargeDQN`` 'auto' (kernel K3 on a card);
                    lg_forward_fused ``forward_impl='fused'`` (K3)
-  lg_stack_update  the 4-frame stack update (``stack_reset``/``stack_step``)
-                   on [B, 84, 84, 1] frames, the rollout's shape (the JAX
-                   script fed [B, 84, 84] frames, which stacks along W)
+  lg_stack_update  the 4-frame stack update (``stack_step``: the stack
+                   kernel on a card) on [B, 84, 84, 1] frames, the
+                   rollout's shape (the JAX script fed [B, 84, 84] frames,
+                   which stacks along W)
   lg_im2col1       conv1's bf16 im2col; lg_argmax the action argmax
 
 Each step perturbs its input as the JAX script does, so that no step
@@ -86,7 +88,7 @@ import torch  # noqa: E402
 
 from deep_neuroevolution_torch.device import resolve_device  # noqa: E402
 from deep_neuroevolution_torch.envs.preprocess import (  # noqa: E402
-    GRAYSCALE_PALETTE, preprocess_frames, preprocess_gray_frames, stack_reset, stack_step)
+    GRAYSCALE_PALETTE, frames_kernel, preprocess_obs, stack_kernel, stack_reset, stack_step)
 from deep_neuroevolution_torch.models import LargeDQN, VirtualBNDQN  # noqa: E402
 from deep_neuroevolution_torch.models.batchnorm import VBNStats  # noqa: E402
 from deep_neuroevolution_torch.models.core import batch_conv2d, extract_patches  # noqa: E402
@@ -106,7 +108,8 @@ LARGE_STAGES = ("lg_conv1", "lg_conv2", "lg_conv3", "lg_convchain", "lg_fc_palla
                 "lg_stack_update", "lg_im2col1", "lg_argmax", "lg_forward_fused")
 MATCH_BATCHES = 4  # frame batches of the LargeDQN's K3-against-split action match
 KERNELS = (population_linear, fused_dqn.vbn_dqn_fused1_scores, fused_dqn.vbn_dqn_fused_scores,  # counted wrappers
-           fused_dqn.large_dqn_fused_scores, fused_dqn.dqn_conv_chain_fused, fc_ktiled, fc_whole)
+           fused_dqn.large_dqn_fused_scores, fused_dqn.dqn_conv_chain_fused, fc_ktiled, fc_whole, frames_kernel,
+           stack_kernel)
 
 
 def scale(t: int, dtype: torch.dtype) -> float:
@@ -127,8 +130,8 @@ def palette_step(frames: torch.Tensor):
 
 
 def preprocess_step(frames: torch.Tensor, gray: bool):
-    fn = preprocess_gray_frames if gray else preprocess_frames
-    return lambda t: fn(frames + t, 84, 84)
+    mode = "gray" if gray else "indexed"
+    return lambda t: preprocess_obs(frames + t, mode, 84, 84)
 
 
 def fc_step(name: str, x: torch.Tensor, W: torch.Tensor):

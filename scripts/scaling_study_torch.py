@@ -316,6 +316,9 @@ def main(argv=None) -> dict:
             else:
                 res = _hostpod_indep_child(a.share_pop, a.share_batch, a.num_threads, device)
         print(json.dumps(res), flush=True)
+        from deep_neuroevolution_torch.parallel import distributed
+
+        distributed.shutdown()  # gloo's threads joined now: left to the interpreter's exit they can abort it
         return res
 
     results = {"config": {
